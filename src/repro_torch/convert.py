@@ -1,0 +1,107 @@
+"""Parameters carried across from the reference, and made in its layout.
+
+The JAX package saves parameters with ``repro.checkpoint.npz
+.save_pytree``: one ``.npz`` of path-keyed arrays (``encoder/down1/kernel``,
+``codebook``, ...), with NHWC-style weights — conv2d kernels HWIO, conv1d
+kernels HIO, dense weights (in, out). :func:`params_from_numpy` turns such
+a dict into the port's parameters: conv2d HWIO -> OIHW by
+``transpose(3, 2, 0, 1)``, conv1d HIO -> OIH by ``transpose(2, 1, 0)``,
+probe weights kept (in, out) since the probe computes ``x @ w``.
+
+:func:`init_numpy_params` draws parameters in the reference's layout from
+``numpy.random.default_rng(seed)`` with the reference's init scales, so a
+program without JAX gets full-width weights through the same converter.
+Decoder arrays in a checkpoint are ignored until the training slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core.downstream import LinearProbe
+from repro_torch.core.dvqae import DVQAEConfig, make_encoder
+
+_TO_TORCH = {4: (3, 2, 0, 1), 3: (2, 1, 0)}     # HWIO -> OIHW, HIO -> OIH
+_TO_REF = {4: (2, 3, 1, 0), 3: (2, 1, 0)}       # OIHW -> HWIO, OIH -> HIO
+
+
+def _ref_key(name: str) -> str:
+    """Port parameter name (``res0.c1.weight``) -> reference path
+    (``encoder/res0/c1/kernel``)."""
+    path, leaf = name.rsplit(".", 1)
+    return "encoder/" + path.replace(".", "/") + "/" + (
+        "kernel" if leaf == "weight" else leaf)
+
+
+def params_from_numpy(flat: Dict[str, np.ndarray], cfg: DVQAEConfig, *,
+                      device="cpu") -> dict:
+    """Reference path-keyed arrays -> ``{"encoder": nn.Module,
+    "codebook": (K, M) tensor}`` on ``device``."""
+    enc = make_encoder(cfg)
+    state = {}
+    for name, p in enc.named_parameters():
+        arr = np.asarray(flat[_ref_key(name)], dtype=np.float32)
+        if arr.ndim in _TO_TORCH:
+            arr = arr.transpose(_TO_TORCH[arr.ndim])
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{_ref_key(name)}: shape {arr.shape} does not "
+                             f"fit the port's {tuple(p.shape)}")
+        state[name] = torch.from_numpy(np.ascontiguousarray(arr))
+    enc.load_state_dict(state)
+    enc.requires_grad_(False)
+    codebook = torch.from_numpy(np.asarray(flat["codebook"], np.float32))
+    return {"encoder": enc.to(device), "codebook": codebook.to(device)}
+
+
+def load_npz(path: str, cfg: DVQAEConfig, *, device="cpu") -> dict:
+    """``params_from_numpy`` of a reference ``save_pytree`` file."""
+    with np.load(path) as data:
+        return params_from_numpy(dict(data), cfg, device=device)
+
+
+def init_numpy_params(cfg: DVQAEConfig, seed: int) -> Dict[str, np.ndarray]:
+    """Encoder + codebook in the reference's layout and init scales:
+    conv kernels U(±1/sqrt(fan_in)), zero biases, N(0, 1) codebook."""
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for name, p in make_encoder(cfg).named_parameters():
+        shape = tuple(p.shape)
+        if name.endswith(".weight"):
+            scale = 1.0 / math.sqrt(math.prod(shape[1:]))
+            w = rng.uniform(-scale, scale, shape).astype(np.float32)
+            flat[_ref_key(name)] = w.transpose(_TO_REF[len(shape)])
+        else:
+            flat[_ref_key(name)] = np.zeros(shape, np.float32)
+    flat["codebook"] = rng.standard_normal(
+        (cfg.codebook_size, cfg.latent_dim)).astype(np.float32)
+    return flat
+
+
+def probe_from_numpy(flat: Dict[str, np.ndarray], *,
+                     device="cpu") -> LinearProbe:
+    """Reference linear-probe arrays (w1, b1, w2, b2, w3, b3) -> module."""
+    w1, w3 = flat["w1"], flat["w3"]
+    head = LinearProbe(w1.shape[0], w3.shape[1], hidden=w1.shape[1])
+    head.load_state_dict({k: torch.from_numpy(np.asarray(flat[k], np.float32))
+                          for k in ("w1", "b1", "w2", "b2", "w3", "b3")})
+    head.requires_grad_(False)
+    return head.to(device)
+
+
+def init_numpy_probe(in_dim: int, n_classes: int, *, hidden: int = 128,
+                     seed: int = 0) -> Dict[str, np.ndarray]:
+    """Linear-probe arrays in the reference's layout and init scales."""
+    rng = np.random.default_rng(seed)
+
+    def dense(d_in: int, d_out: int) -> np.ndarray:
+        s = 1.0 / math.sqrt(d_in)
+        return rng.uniform(-s, s, (d_in, d_out)).astype(np.float32)
+
+    return {"w1": dense(in_dim, hidden), "b1": np.zeros(hidden, np.float32),
+            "w2": dense(hidden, hidden), "b2": np.zeros(hidden, np.float32),
+            "w3": dense(hidden, n_classes),
+            "b3": np.zeros(n_classes, np.float32)}
+

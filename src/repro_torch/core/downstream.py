@@ -1,0 +1,45 @@
+"""Downstream head on decoded OCTOPUS features (§3.1.1, §3.6).
+
+Port of the serving part of ``repro.core.downstream``: the paper's
+three-linear-layer probe as an ``nn.Module``, and :func:`accuracy`.
+Training the head (``sgd_train``) comes with the training slice.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.nn.layers import dense_init
+
+
+class LinearProbe(nn.Module):
+    """The latent-code head: three linear layers with ReLU between. The
+    weights are (in, out) and used as ``x @ w``, as in the reference."""
+
+    def __init__(self, in_dim: int, n_classes: int, hidden: int = 128, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.w1 = nn.Parameter(dense_init(in_dim, hidden, generator=g))
+        self.b1 = nn.Parameter(torch.zeros(hidden))
+        self.w2 = nn.Parameter(dense_init(hidden, hidden, generator=g))
+        self.b2 = nn.Parameter(torch.zeros(hidden))
+        self.w3 = nn.Parameter(dense_init(hidden, n_classes, generator=g))
+        self.b3 = nn.Parameter(torch.zeros(n_classes))
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        z = z.reshape(z.shape[0], -1)
+        h = F.relu(z @ self.w1 + self.b1)
+        h = F.relu(h @ self.w2 + self.b2)
+        return h @ self.w3 + self.b3
+
+
+@torch.no_grad()
+def accuracy(head: nn.Module, x: torch.Tensor, y) -> float:
+    """Share of rows whose argmax logit is the label."""
+    logits = head(x)
+    y = torch.as_tensor(y, device=logits.device)
+    return float((logits.argmax(-1) == y).float().mean())

@@ -1,0 +1,122 @@
+"""Distributed Vector-Quantized Autoencoder (OCTOPUS §2.3): the encoders.
+
+Port of ``repro.core.dvqae`` for the serving slice: the configuration
+(its own copy of the reference's dataclass), the image and speech
+encoders as ``nn.Module``s, and :func:`encode`. The decoders and the
+training forward pass come with the training slice.
+
+The encoders take the reference's layouts — (B, H, W, C) images and
+(B, T, C) frames — and :func:`encode` returns (B, P, M) latents, P =
+(H/4)*(W/4) or T/4. Inside they run in PyTorch's NCHW / NCT layout.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.nn.layers import Conv1d, Conv2d, _instance_norm
+
+
+@dataclass(frozen=True)
+class DVQAEConfig:
+    kind: str = "image"            # image | speech | sequence
+    in_channels: int = 3           # image channels / speech feature dim
+    hidden: int = 128              # conv channel width
+    n_res_blocks: int = 2
+    latent_dim: int = 64           # M, codebook atom dim
+    codebook_size: int = 256       # K
+    n_groups: int = 1              # GSVQ groups (1 = plain VQ)
+    n_slices: int = 1              # GSVQ slices
+    apply_in: bool = True          # InstanceNorm disentanglement on/off
+    encoder_in: bool = True        # IN inside the encoder convs
+    alpha: float = 1.0             # codebook loss weight
+    beta: float = 0.25             # commitment weight
+    lam: float = 0.01              # latent (IN-pull) weight, paper lambda
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+class _ResBlock(nn.Module):
+    def __init__(self, conv, c: int, generator=None):
+        super().__init__()
+        self.c1 = conv(c, c, 3, generator=generator)
+        self.c2 = conv(c, c, 1, generator=generator)
+
+    def forward(self, x):
+        h = self.c1(F.relu(x))
+        return x + self.c2(F.relu(h))
+
+
+class _ConvEncoder(nn.Module):
+    """Two stride-2 convs (with IN), a mid conv, res blocks, to_latent."""
+
+    conv = Conv2d
+    spatial = (2, 3)
+
+    def __init__(self, cfg: DVQAEConfig, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        c, h = cfg.in_channels, cfg.hidden
+        g = generator
+        self.encoder_in = cfg.encoder_in
+        self.down1 = self.conv(c, h // 2, 4, generator=g)
+        self.down2 = self.conv(h // 2, h, 4, generator=g)
+        self.mid = self.conv(h, h, 3, generator=g)
+        self.to_latent = self.conv(h, cfg.latent_dim, 1, generator=g)
+        for i in range(cfg.n_res_blocks):
+            self.add_module(f"res{i}", _ResBlock(self.conv, h, generator=g))
+        self.n_res_blocks = cfg.n_res_blocks
+
+    def _trunk(self, x):
+        h = F.relu(self.down1(x, stride=2))
+        if self.encoder_in:
+            h = _instance_norm(h, self.spatial, 1e-5)
+        h = F.relu(self.down2(h, stride=2))
+        if self.encoder_in:
+            h = _instance_norm(h, self.spatial, 1e-5)
+        h = self.mid(h)
+        for i in range(self.n_res_blocks):
+            h = getattr(self, f"res{i}")(h)
+        return self.to_latent(F.relu(h))
+
+
+class ImageEncoder(_ConvEncoder):
+    """(B, H, W, C) images -> (B, H/4, W/4, M) latents."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._trunk(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class SpeechEncoder(_ConvEncoder):
+    """(B, T, C) frames -> (B, T/4, M) latents."""
+
+    conv = Conv1d
+    spatial = (2,)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._trunk(x.transpose(1, 2)).transpose(1, 2)
+
+
+def make_encoder(cfg: DVQAEConfig, *,
+                 generator: Optional[torch.Generator] = None) -> nn.Module:
+    if cfg.kind == "image":
+        return ImageEncoder(cfg, generator=generator)
+    if cfg.kind == "speech":
+        return SpeechEncoder(cfg, generator=generator)
+    raise ValueError(f"the port encodes image and speech DVQ-AEs, got "
+                     f"kind={cfg.kind!r}")
+
+
+def encode(params, cfg: DVQAEConfig, x: torch.Tensor):
+    """-> (z (B, P, M), spatial): (H/4, W/4) for images, None for speech."""
+    z = params["encoder"](x)
+    if cfg.kind == "image":
+        B, H, W, M = z.shape
+        return z.reshape(B, H * W, M), (H, W)
+    return z, None

@@ -1,0 +1,74 @@
+"""Public kernel entry points: the CUDA kernel for a tensor on the card,
+the plain PyTorch version for a tensor on the CPU.
+
+Port of ``repro.kernels.ops`` for the serving path. The choice follows
+only from where the tensor lies: a CUDA tensor launches the hand-written
+kernel (or raises), a CPU tensor runs the plain version in
+:mod:`repro_torch.kernels.ref`. Nothing falls back from one to the other.
+
+:data:`LAUNCHES` counts the CUDA launches of each kernel; the plain
+versions never touch it.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from ._build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
+from .decode_codes import decode_codes_cuda
+from .encode_codes import encode_codes_cuda
+from .pack_bits import pack_codes_cuda, unpack_codes_cuda
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"the port's kernels run on cuda or cpu tensors, got "
+                     f"{t.device}")
+
+
+def pack_codes(codes: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """Any-shape int codes -> (n_groups, W) int32 dense bit-stream at
+    ``bits`` bits per code (kernels/pack_bits.py layout)."""
+    if _on_card(codes):
+        return pack_codes_cuda(codes.to(torch.int32).contiguous(), bits=bits)
+    return ref.pack_codes_ref(codes, bits=bits)
+
+
+def unpack_codes(words: torch.Tensor, *, bits: int,
+                 count: int) -> torch.Tensor:
+    """(n_groups, W) int32 words -> (count,) int32 codes, bit-exact."""
+    if _on_card(words):
+        return unpack_codes_cuda(words.contiguous(), bits=bits, count=count)
+    return ref.unpack_codes_ref(words, bits=bits, count=count)
+
+
+def decode_codes(words: torch.Tensor, table: torch.Tensor, *, bits: int,
+                 count: int, n_slices: int = 1, phases=None) -> torch.Tensor:
+    """Fused packed-word -> feature decode: (n, W) words + a
+    (n_slices*rows, F) decode table -> (count, F) rows."""
+    if _on_card(words):
+        if phases is not None:
+            phases = torch.as_tensor(phases, device=words.device) \
+                .to(torch.int32).contiguous()
+        return decode_codes_cuda(words.contiguous(),
+                                 table.float().contiguous(), bits=bits,
+                                 count=count, n_slices=n_slices,
+                                 phases=phases)
+    return ref.decode_codes_ref(words, table, bits=bits, count=count,
+                                n_slices=n_slices, phases=phases)
+
+
+def encode_codes(z: torch.Tensor, codebooks: torch.Tensor, *, bits: int,
+                 n_groups: int = 1, n_slices: int = 1):
+    """Fused latent -> packed-code encode with the EMA statistics:
+    (R, P, M) latents + (R, K, M) per-record codebooks -> (words
+    (R*nW, W) int32, counts (R, K), sums (R, K, M)) in one dispatch."""
+    if _on_card(z):
+        return encode_codes_cuda(z.float().contiguous(),
+                                 codebooks.float().contiguous(), bits=bits,
+                                 n_groups=n_groups, n_slices=n_slices)
+    return ref.encode_codes_ref(z, codebooks, bits=bits, n_groups=n_groups,
+                                n_slices=n_slices)

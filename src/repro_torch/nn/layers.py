@@ -1,0 +1,117 @@
+"""Base layers of the DVQ-AE encoder.
+
+Port of the conv, instance-norm and init parts of ``repro.nn.layers``.
+The public functions keep the reference's layouts — NHWC / NTC
+activations — and take PyTorch's weight layouts (OIHW / OIH); they
+permute inside. The modules (:class:`Conv2d`, :class:`Conv1d`) work in
+PyTorch's own NCHW / NCT layout, so an encoder permutes once at entry and
+once at exit.
+
+Padding is XLA's ``SAME`` rule, which PyTorch's ``padding="same"`` does
+not give at stride > 1: total = max((ceil(n/s) - 1)*s + k - n, 0), low =
+total // 2, high = the rest. Variances are population variances (ddof 0),
+as ``jnp.var`` computes them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def same_padding(size: int, ksize: int, stride: int) -> Tuple[int, int]:
+    """XLA ``SAME`` padding (low, high) of one spatial axis."""
+    total = max((-(-size // stride) - 1) * stride + ksize - size, 0)
+    return total // 2, total - total // 2
+
+
+def _conv2d_nchw(x, weight, bias, stride: int):
+    kh, kw = weight.shape[-2:]
+    ph = same_padding(x.shape[-2], kh, stride)
+    pw = same_padding(x.shape[-1], kw, stride)
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+    return F.conv2d(x, weight, bias, stride=stride)
+
+
+def _conv1d_nct(x, weight, bias, stride: int):
+    p = same_padding(x.shape[-1], weight.shape[-1], stride)
+    return F.conv1d(F.pad(x, p), weight, bias, stride=stride)
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           stride: int = 1) -> torch.Tensor:
+    """NHWC conv with an OIHW weight and XLA ``SAME`` padding."""
+    y = _conv2d_nchw(x.permute(0, 3, 1, 2), weight, bias, stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           stride: int = 1) -> torch.Tensor:
+    """NTC conv with an OIH weight and XLA ``SAME`` padding."""
+    return _conv1d_nct(x.transpose(1, 2), weight, bias, stride) \
+        .transpose(1, 2)
+
+
+def _instance_norm(x, dims, eps: float):
+    mu = x.mean(dim=dims, keepdim=True)
+    sigma = torch.sqrt(x.var(dim=dims, unbiased=False, keepdim=True) + eps)
+    return (x - mu) / sigma
+
+
+def instance_norm_2d(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """InstanceNorm over the spatial dims of NHWC input (Eq. 4)."""
+    return _instance_norm(x, (1, 2), eps)
+
+
+def instance_norm_1d(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """InstanceNorm over the time dim of NTC input (speech path)."""
+    return _instance_norm(x, (1,), eps)
+
+
+def uniform_init(shape, scale: float, *,
+                 generator: Optional[torch.Generator] = None,
+                 dtype=torch.float32) -> torch.Tensor:
+    """U(-scale, scale) on the CPU from an explicit generator."""
+    return (torch.rand(shape, generator=generator, dtype=dtype) * 2.0 - 1.0) \
+        * scale
+
+
+def dense_init(d_in: int, d_out: int, *,
+               generator: Optional[torch.Generator] = None,
+               name_scale: float = 1.0) -> torch.Tensor:
+    """(d_in, d_out) weight used as ``x @ w``, U(±name_scale/sqrt(d_in))."""
+    return uniform_init((d_in, d_out), name_scale / math.sqrt(d_in),
+                        generator=generator)
+
+
+class Conv2d(nn.Module):
+    """NCHW conv with an OIHW weight and XLA ``SAME`` padding."""
+
+    def __init__(self, c_in: int, c_out: int, ksize: int, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        scale = 1.0 / math.sqrt(c_in * ksize * ksize)
+        self.weight = nn.Parameter(uniform_init(
+            (c_out, c_in, ksize, ksize), scale, generator=generator))
+        self.bias = nn.Parameter(torch.zeros(c_out))
+
+    def forward(self, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+        return _conv2d_nchw(x, self.weight, self.bias, stride)
+
+
+class Conv1d(nn.Module):
+    """NCT conv with an OIH weight and XLA ``SAME`` padding."""
+
+    def __init__(self, c_in: int, c_out: int, ksize: int, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        scale = 1.0 / math.sqrt(c_in * ksize)
+        self.weight = nn.Parameter(uniform_init(
+            (c_out, c_in, ksize), scale, generator=generator))
+        self.bias = nn.Parameter(torch.zeros(c_out))
+
+    def forward(self, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+        return _conv1d_nct(x, self.weight, self.bias, stride)
