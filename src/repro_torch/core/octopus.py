@@ -9,7 +9,7 @@ slice.
 from __future__ import annotations
 
 import copy
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -86,16 +86,9 @@ def decode_table(cfg: DVQAEConfig, codebook: torch.Tensor):
     return codebook, 1
 
 
-def codes_to_features(server: Optional[ServerState], cfg: DVQAEConfig,
-                      payload, *, codebook: Optional[torch.Tensor] = None):
+def codes_to_features(cfg: DVQAEConfig, payload, codebook: torch.Tensor):
     """Dequantize a :class:`~repro_torch.wire.payload.CodePayload` into
     downstream features in ONE fused decode dispatch, against
-    ``codebook`` (the registry snapshot the codes were packed under) or
-    the server's current table."""
+    ``codebook``, the registry snapshot the codes were packed under."""
     from repro_torch.wire.codec import decode_payloads
-    if codebook is None:
-        if server is None:
-            raise ValueError("codes_to_features needs a ServerState or an "
-                             "explicit codebook= to decode against")
-        codebook = server.params["codebook"]
     return decode_payloads([payload], cfg, codebook)[0]

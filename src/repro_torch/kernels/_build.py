@@ -36,7 +36,7 @@ _SIGNATURES = {
     # words/codes pointers, sizes, bits, device, stream
     "rt_pack_codes": (_P, _L, _P, _L, _I, _I, _P),
     "rt_unpack_codes": (_P, _L, _P, _L, _I, _I, _P),
-    "rt_encode_codes": (_P, _P, _P, _P, _P, _P, _P, _P,
+    "rt_encode_codes": (_P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _P),
     "rt_decode_codes": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),

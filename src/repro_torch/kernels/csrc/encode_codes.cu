@@ -46,8 +46,7 @@ constexpr int kTableBytes = 96 * 1024;   // shared memory for table chunks
 constexpr int kMaxSmem = 227 * 1024;
 
 template <int MT, bool GSVQ>
-__global__ void encode_kernel(const float* __restrict__ zs,
-                              const float* __restrict__ zf,
+__global__ void encode_kernel(const float* __restrict__ z_in,
                               const float* __restrict__ table,
                               uint32_t* __restrict__ words,
                               float* __restrict__ pcounts,
@@ -72,7 +71,8 @@ __global__ void encode_kernel(const float* __restrict__ zs,
 
   float z[MT];
   {
-    const float* zrow = zs + (static_cast<long long>(r) * Pn +
+    // z_in as (R, Pn, m): this thread's slice row
+    const float* zrow = z_in + (static_cast<long long>(r) * Pn +
                               (valid ? row0 + t : 0)) * m;
 #pragma unroll
     for (int k = 0; k < MT; ++k) z[k] = (valid && k < m) ? zrow[k] : 0.f;
@@ -182,8 +182,9 @@ __global__ void encode_kernel(const float* __restrict__ zs,
     const int pos0 = row0 / S;
     for (int c = M <= static_cast<int>(blockDim.x) ? tid % M : tid; c < M;
          c += c_step) {
-      // every slice votes its position's FULL latent
-      const float* zcol = zf + (static_cast<long long>(r) * P + pos0) * M + c;
+      // every slice votes its position's FULL latent: z_in as (R, P, M)
+      const float* zcol =
+          z_in + (static_cast<long long>(r) * P + pos0) * M + c;
 #pragma unroll 4
       for (int u = 0; u < n_valid; ++u) {
         const int rep = code_s[u] * ng + ng / 2;
@@ -230,8 +231,8 @@ __global__ void reduce_partials(const float* __restrict__ part,
 
 template <int MT, bool GSVQ>
 cudaError_t launch_encode(dim3 grid, int threads, size_t smem,
-                          cudaStream_t st, const float* zs, const float* zf,
-                          const float* table, uint32_t* words, float* pcounts,
+                          cudaStream_t st, const float* z, const float* table,
+                          uint32_t* words, float* pcounts,
                           float* psums, int P, int Pn, int m, int M, int K,
                           int S, int ng, int bits, int nW, int bn, int NB,
                           int CK) {
@@ -240,7 +241,7 @@ cudaError_t launch_encode(dim3 grid, int threads, size_t smem,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, st>>>(zs, zf, table, words, pcounts, psums,
+  kernel<<<grid, threads, smem, st>>>(z, table, words, pcounts, psums,
                                       P, Pn, m, M, K, S, ng, bits, nW, bn,
                                       NB, CK);
   return cudaGetLastError();
@@ -248,16 +249,16 @@ cudaError_t launch_encode(dim3 grid, int threads, size_t smem,
 
 template <bool GSVQ>
 cudaError_t dispatch_width(int MT, dim3 grid, int threads, size_t smem,
-                           cudaStream_t st, const float* zs, const float* zf,
+                           cudaStream_t st, const float* z,
                            const float* table, uint32_t* words,
                            float* pcounts, float* psums, int P, int Pn, int m,
                            int M, int K, int S, int ng, int bits, int nW,
                            int bn, int NB, int CK) {
 #define RT_ENC(W_)                                                          \
   case W_:                                                                  \
-    return launch_encode<W_, GSVQ>(grid, threads, smem, st, zs, zf, table,  \
-                                   words, pcounts, psums, P, Pn, m, M, K, S, \
-                                   ng, bits, nW, bn, NB, CK);
+    return launch_encode<W_, GSVQ>(grid, threads, smem, st, z, table, words, \
+                                   pcounts, psums, P, Pn, m, M, K, S, ng,    \
+                                   bits, nW, bn, NB, CK);
   switch (MT) {
     RT_ENC(4) RT_ENC(8) RT_ENC(16) RT_ENC(32) RT_ENC(64) RT_ENC(128)
     default:
@@ -268,11 +269,12 @@ cudaError_t dispatch_width(int MT, dim3 grid, int threads, size_t smem,
 
 }  // namespace
 
-// zs (R, Pn, m) slice-view latents, zf (R, P, M) full latents, table
-// (R, S*K, m) slice-stacked codebooks -> words (R*nW, W), counts (R, K),
-// sums (R, K, M). pcounts (R, NB, K) and psums (R, NB, K, M) are scratch.
-extern "C" int rt_encode_codes(const float* zs, const float* zf,
-                               const float* table, int* words, float* counts,
+// z: contiguous latents, read both as (R, P, M) and as its slice view
+// (R, Pn, m) with Pn = P*S, m = M/S; table (R, S*K, m) slice-stacked
+// codebooks -> words (R*nW, W), counts (R, K), sums (R, K, M). pcounts
+// (R, NB, K) and psums (R, NB, K, M) are scratch.
+extern "C" int rt_encode_codes(const float* z, const float* table, int* words,
+                               float* counts,
                                float* sums, float* pcounts, float* psums,
                                int R, int P, int Pn, int m, int M, int K,
                                int S, int ng, int gsvq, int bits, int bn,
@@ -301,10 +303,10 @@ extern "C" int rt_encode_codes(const float* zs, const float* zf,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   uint32_t* w = reinterpret_cast<uint32_t*>(words);
   const dim3 grid(NB, R);
-  err = gsvq ? dispatch_width<true>(MT, grid, bn, smem, st, zs, zf, table, w,
+  err = gsvq ? dispatch_width<true>(MT, grid, bn, smem, st, z, table, w,
                                     pcounts, psums, P, Pn, m, M, K, S, ng,
                                     bits, nW, bn, NB, CK)
-             : dispatch_width<false>(MT, grid, bn, smem, st, zs, zf, table, w,
+             : dispatch_width<false>(MT, grid, bn, smem, st, z, table, w,
                                      pcounts, psums, P, Pn, m, M, K, S, ng,
                                      bits, nW, bn, NB, CK);
   if (err != cudaSuccess) return err;

@@ -85,7 +85,7 @@ def encode_codes_cuda(z: torch.Tensor, codebooks: torch.Tensor, *,
     pcounts = torch.empty((R, NB, K), dtype=torch.float32, device=dev)
     psums = torch.empty((R, NB, K, M), dtype=torch.float32, device=dev)
     _build.check(_build.library().rt_encode_codes(
-        z.data_ptr(), z.data_ptr(), table.data_ptr(), words.data_ptr(),
+        z.data_ptr(), table.data_ptr(), words.data_ptr(),
         counts.data_ptr(), sums.data_ptr(), pcounts.data_ptr(),
         psums.data_ptr(), R, P, Pn, m, M, K, S, ng, int(gsvq), bits, bn, NB,
         dev.index, _build.stream_of(z)), "encode_codes")

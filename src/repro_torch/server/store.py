@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.dvqae import DVQAEConfig
-from repro_torch.wire.payload import (DEFAULT_TASK, CodePayload, LabelsLike,
+from repro_torch.wire.payload import (DEFAULT_TASK, CodePayload,
                                       normalize_labels)
 
 
@@ -62,12 +62,11 @@ class CodeStore:
         """Measured packed bytes currently held (§2.8 accounting)."""
         return sum(r.packed.nbytes for r in self._records)
 
-    def add(self, packed: CodePayload, *, client_ids=None, round: int = 0,
-            version: Optional[int] = None, labels: LabelsLike = None
+    def add(self, packed: CodePayload, *, client_ids=None, round: int = 0
             ) -> StoreRecord:
-        """Ingest one wire payload of shape (C, B, T[, n_c]). ``version``
-        and ``labels`` default to the payload's own; labels are checked
-        against the sample count HERE."""
+        """Ingest one wire payload of shape (C, B, T[, n_c]) under its own
+        codebook version; its labels are checked against the sample
+        count HERE."""
         if packed.privatized is False:
             raise ValueError(
                 "refusing a payload not marked privatized: only public Z• "
@@ -82,12 +81,9 @@ class CodeStore:
         if client_ids.shape[0] != C:
             raise ValueError(f"client_ids has {client_ids.shape[0]} entries "
                              f"for {C} client rows in the payload")
-        version = int(packed.version if version is None else version)
         rec = StoreRecord(packed=packed, client_ids=client_ids,
-                          round=int(round), version=version,
-                          labels=normalize_labels(
-                              packed.labels if labels is None else labels,
-                              C * B))
+                          round=int(round), version=int(packed.version),
+                          labels=normalize_labels(packed.labels, C * B))
         self._records.append(rec)
         self.ingested_records += 1
         self.ingested_samples += rec.n_samples
@@ -105,14 +101,13 @@ class CodeStore:
                 return rec.packed.unpack()[int(pos[0])], rec.version
         raise KeyError((client_id, round))
 
-    def dataset(self, server, *, registry=None,
-                version: Optional[int] = None
+    def dataset(self, registry, *, version: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Bulk decode: ONE fused decode dispatch per codebook version,
-        each against its registry snapshot when a ``registry`` is given.
-        Returns (features (N, ...), {task: (N,) labels}) in record order."""
-        return decode_records(self._records, self.cfg, server,
-                              registry=registry, version=version)
+        each against its ``registry`` snapshot. Returns
+        (features (N, ...), {task: (N,) labels}) in record order."""
+        return decode_records(self._records, self.cfg, registry,
+                              version=version)
 
 
 # ------------------------------------------------------- shared decode path
@@ -144,25 +139,21 @@ def label_dict_for(records) -> Dict[str, torch.Tensor]:
     return out
 
 
-def decode_group(recs, cfg: DVQAEConfig, server,
-                 codebook: Optional[torch.Tensor]) -> List[torch.Tensor]:
+def decode_group(recs, cfg: DVQAEConfig, codebook: torch.Tensor
+                 ) -> List[torch.Tensor]:
     """ONE fused decode dispatch for records packed under one version ->
     per-record (C*B, T..., M) feature blocks."""
     from repro_torch.wire.codec import decode_payloads
-    if codebook is None:
-        if server is None:
-            raise ValueError("decode needs a ServerState or a registry "
-                             "to decode against")
-        codebook = server.params["codebook"]
     blocks = decode_payloads([r.packed for r in recs], cfg, codebook)
     return [f.reshape((-1,) + tuple(f.shape[2:])) for f in blocks]
 
 
-def decode_records(records, cfg: DVQAEConfig, server, *, registry=None,
+def decode_records(records, cfg: DVQAEConfig, registry, *,
                    version: Optional[int] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Bulk decode any record sequence: ONE fused dispatch per
-    (codebook version, bit width) group."""
+    (codebook version, bit width) group, against the version's
+    ``registry`` snapshot."""
     records = list(records)
     recs = [(i, r) for i, r in enumerate(records)
             if version is None or r.version == version]
@@ -175,8 +166,8 @@ def decode_records(records, cfg: DVQAEConfig, server, *, registry=None,
         groups.setdefault((r.version, r.packed.bits), []).append(i)
     parts: Dict[int, torch.Tensor] = {}
     for (v, _), idxs in groups.items():
-        cb = registry.get(v) if registry is not None else None
-        blocks = decode_group([records[i] for i in idxs], cfg, server, cb)
+        blocks = decode_group([records[i] for i in idxs], cfg,
+                              registry.get(v))
         parts.update(zip(idxs, blocks))
     feats = torch.cat([parts[i] for i, _ in recs], dim=0)
     return feats, label_dict_for([r for _, r in recs])

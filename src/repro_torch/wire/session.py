@@ -53,7 +53,7 @@ def index_shape(cfg: DVQAEConfig, z_shape) -> Tuple[int, ...]:
 
 
 def _round_core(client: OC.ClientState, cfg: DVQAEConfig, batch, *,
-                gamma: float, refresh: bool):
+                refresh: bool):
     """ONE encoder pass, ONE ``ops.encode_codes`` dispatch, optional
     Step 5 refresh from the dispatch's statistics -> (client, z, words).
     The whole batch is ONE record: z.reshape(1, B*P, M)."""
@@ -64,7 +64,7 @@ def _round_core(client: OC.ClientState, cfg: DVQAEConfig, batch, *,
         bits=OC.transmit_bits(cfg), n_groups=cfg.n_groups,
         n_slices=cfg.n_slices)
     if refresh:
-        client = OC.client_codebook_refresh(client, cfg, gamma=gamma,
+        client = OC.client_codebook_refresh(client, cfg,
                                             stats=(counts[0], sums[0]))
     return client, z, words
 
@@ -74,15 +74,9 @@ class OctopusClient:
     Deployed from an :class:`OctopusServer`, it runs on the server's
     device and stamps payloads with the server's codebook version."""
 
-    def __init__(self, server: "OctopusServer", cfg: Optional[DVQAEConfig]
-                 = None, *, gamma: float = 0.99, n_local_steps: int = 1,
-                 client_id: int = 0):
-        if not isinstance(server, OctopusServer):
-            raise TypeError("the port deploys clients from an OctopusServer")
-        self.cfg = cfg or server.cfg
+    def __init__(self, server: "OctopusServer", *, client_id: int = 0):
+        self.cfg = server.cfg
         self.device = server.device
-        self.gamma = gamma
-        self.n_local_steps = n_local_steps
         self.client_id = int(client_id)
         self.state = OC.client_init(server.state)
         self.version = int(server.version)
@@ -91,19 +85,18 @@ class OctopusClient:
     def codebook(self) -> torch.Tensor:
         return self.state.params["codebook"]
 
-    def round(self, batch, *, labels=None, finetune: Optional[int] = None,
+    def round(self, batch, *, labels=None, finetune: int = 0,
               refresh: bool = True) -> CodePayload:
         """The uplink entry: Steps 3-5 through the fused encode path,
         stamped with the codebook version this client deployed from.
         ``refresh=False`` skips the Step 5 EMA refresh."""
-        n_local = self.n_local_steps if finetune is None else int(finetune)
-        if n_local > 0:
+        if finetune > 0:
             raise NotImplementedError(
                 "local fine-tuning (Step 2) comes with the port's training "
                 "slice; call round(..., finetune=0) or transmit()")
         x = torch.as_tensor(batch, dtype=torch.float32, device=self.device)
         self.state, z, words = _round_core(self.state, self.cfg, x,
-                                           gamma=self.gamma, refresh=refresh)
+                                           refresh=refresh)
         return CodePayload.from_words(
             words, bits=OC.transmit_bits(self.cfg),
             shape=(1,) + index_shape(self.cfg, z.shape), n_records=1,
@@ -112,15 +105,14 @@ class OctopusClient:
 
     def transmit(self, batch, *, labels=None) -> CodePayload:
         """Encode-only uplink (Steps 3-4): no fine-tuning, no refresh."""
-        return self.round(batch, labels=labels, finetune=0, refresh=False)
+        return self.round(batch, labels=labels, refresh=False)
 
 
 class OctopusServer:
     """Server session: versioned registry + code store behind ONE door."""
 
     def __init__(self, server: OC.ServerState, cfg: DVQAEConfig, *,
-                 device=None, store=None, registry=None,
-                 require_privatized: bool = True):
+                 device=None):
         from repro_torch.server.registry import CodebookRegistry
         from repro_torch.server.store import CodeStore
         if not isinstance(server, OC.ServerState):
@@ -132,28 +124,25 @@ class OctopusServer:
         self.state = server._replace(params={
             "encoder": params["encoder"].to(self.device),
             "codebook": params["codebook"].to(self.device)})
-        self.registry = registry if registry is not None else \
-            CodebookRegistry(self.state.params["codebook"])
-        self.store = store if store is not None else CodeStore(cfg)
-        self.require_privatized = require_privatized
+        self.registry = CodebookRegistry(self.state.params["codebook"])
+        self.store = CodeStore(cfg)
 
     @classmethod
-    def init(cls, seed: int, cfg: DVQAEConfig, *, device=None, **kw
+    def init(cls, seed: int, cfg: DVQAEConfig, *, device=None
              ) -> "OctopusServer":
         """A server whose global model is drawn from ``seed`` in the
         reference's layout (``convert.init_numpy_params``)."""
         dev = resolve_device(device)
-        return cls(OC.server_init(seed, cfg, device=dev), cfg, device=dev,
-                   **kw)
+        return cls(OC.server_init(seed, cfg, device=dev), cfg, device=dev)
 
     @property
     def version(self) -> int:
         """Current (latest merged) codebook version."""
         return self.registry.latest
 
-    def deploy(self, **client_kw) -> OctopusClient:
+    def deploy(self, *, client_id: int = 0) -> OctopusClient:
         """Hand a client a session on the current global model."""
-        return OctopusClient(self, **client_kw)
+        return OctopusClient(self, client_id=client_id)
 
     def precheck(self, p: CodePayload) -> Tuple[str, str]:
         """Wire-invariant admission check -> (verdict, reason): unknown
@@ -162,7 +151,7 @@ class OctopusServer:
         (short word stream, CRC mismatch) -> ``corrupt``."""
         if p.wire not in SUPPORTED_WIRE_VERSIONS:
             return "rejected", "wire_revision"
-        if self.require_privatized and not p.privatized:
+        if not p.privatized:
             return "rejected", "unprivatized"
         if self.registry.is_retired(p.version):
             return "rejected", "retired_version"
@@ -190,13 +179,11 @@ class OctopusServer:
         """Bulk decode of everything ingested, each version group against
         its own registry snapshot, ONE fused dispatch per version.
         Returns (features (N, ...), {task: (N,) labels})."""
-        return self.store.dataset(self.state, registry=self.registry,
-                                  version=version)
+        return self.store.dataset(self.registry, version=version)
 
     def decode(self, payload: CodePayload) -> torch.Tensor:
         """Directly decode ONE payload (store bypass) against the snapshot
         it was packed under; merges the client axis."""
-        feats = OC.codes_to_features(
-            None, self.cfg, payload,
-            codebook=self.registry.get(payload.version))
+        feats = OC.codes_to_features(self.cfg, payload,
+                                     self.registry.get(payload.version))
         return feats.reshape((-1,) + tuple(feats.shape[2:]))

@@ -114,13 +114,13 @@ def test_refresh_round_matches_reference(twins):
     jc = jsrv.deploy()
     tc = srv.deploy()
     jp = jc.round(jnp.asarray(x), finetune=0)
-    tp = tc.round(x, finetune=0)
+    tp = tc.round(x)
     np.testing.assert_array_equal(tp.unpack().numpy(),
                                   np.asarray(jp.unpack()))
     np.testing.assert_allclose(tc.codebook.numpy(), np.asarray(jc.codebook),
                                rtol=1e-5, atol=1e-5)
     with pytest.raises(NotImplementedError, match="training slice"):
-        tc.round(x)                     # default: one fine-tuning step
+        tc.round(x, finetune=1)
 
 
 def test_features_decode_each_version_against_its_snapshot(twins,
