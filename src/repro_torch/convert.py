@@ -2,58 +2,83 @@
 
 The JAX package saves parameters with ``repro.checkpoint.npz
 .save_pytree``: one ``.npz`` of path-keyed arrays (``encoder/down1/kernel``,
-``codebook``, ...), with NHWC-style weights — conv2d kernels HWIO, conv1d
-kernels HIO, dense weights (in, out). :func:`params_from_numpy` turns such
-a dict into the port's parameters: conv2d HWIO -> OIHW by
-``transpose(3, 2, 0, 1)``, conv1d HIO -> OIH by ``transpose(2, 1, 0)``,
-probe weights kept (in, out) since the probe computes ``x @ w``.
+``decoder/up1/kernel``, ``codebook``, ...), with NHWC-style weights —
+conv2d and conv2d_transpose kernels HWIO, conv1d kernels HIO, dense
+weights (in, out). :func:`params_from_numpy` turns such a dict into the
+port's parameters: 4-D kernels HWIO -> OIHW by ``transpose(3, 2, 0, 1)``,
+conv1d HIO -> OIH by ``transpose(2, 1, 0)``, probe weights kept (in, out)
+since the probe computes ``x @ w``. :func:`params_to_numpy` writes the
+port's parameters back in the reference's keys and layouts.
 
 :func:`init_numpy_params` draws parameters in the reference's layout from
 ``numpy.random.default_rng(seed)`` with the reference's init scales, so a
 program without JAX gets full-width weights through the same converter.
-Decoder arrays in a checkpoint are ignored until the training slice.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.downstream import LinearProbe
-from repro_torch.core.dvqae import DVQAEConfig, make_encoder
+from repro_torch.core.dvqae import DVQAEConfig, make_decoder, make_encoder
 
 _TO_TORCH = {4: (3, 2, 0, 1), 3: (2, 1, 0)}     # HWIO -> OIHW, HIO -> OIH
 _TO_REF = {4: (2, 3, 1, 0), 3: (2, 1, 0)}       # OIHW -> HWIO, OIH -> HIO
+_NETS = ("encoder", "decoder")
 
 
-def _ref_key(name: str) -> str:
-    """Port parameter name (``res0.c1.weight``) -> reference path
-    (``encoder/res0/c1/kernel``)."""
+def _ref_key(net: str, name: str) -> str:
+    """Port parameter name (``res0.c1.weight``) of ``net`` -> reference
+    path (``encoder/res0/c1/kernel``)."""
     path, leaf = name.rsplit(".", 1)
-    return "encoder/" + path.replace(".", "/") + "/" + (
+    return f"{net}/" + path.replace(".", "/") + "/" + (
         "kernel" if leaf == "weight" else leaf)
+
+
+def named_leaves(params) -> List[Tuple[str, torch.Tensor]]:
+    """(reference key, tensor) of every parameter in the training order:
+    encoder, decoder, codebook."""
+    out = [(_ref_key(net, n), p) for net in _NETS
+           for n, p in params[net].named_parameters()]
+    return out + [("codebook", params["codebook"])]
+
+
+def to_reference_layout(t: torch.Tensor) -> np.ndarray:
+    """A port weight (or its gradient) -> numpy in the reference's layout."""
+    arr = t.detach().cpu().numpy()
+    return arr.transpose(_TO_REF[arr.ndim]) if arr.ndim in _TO_REF else arr
+
+
+def params_to_numpy(params) -> Dict[str, np.ndarray]:
+    """The port's parameters -> reference path-keyed arrays."""
+    return {k: to_reference_layout(t) for k, t in named_leaves(params)}
 
 
 def params_from_numpy(flat: Dict[str, np.ndarray], cfg: DVQAEConfig, *,
                       device="cpu") -> dict:
-    """Reference path-keyed arrays -> ``{"encoder": nn.Module,
-    "codebook": (K, M) tensor}`` on ``device``."""
-    enc = make_encoder(cfg)
-    state = {}
-    for name, p in enc.named_parameters():
-        arr = np.asarray(flat[_ref_key(name)], dtype=np.float32)
-        if arr.ndim in _TO_TORCH:
-            arr = arr.transpose(_TO_TORCH[arr.ndim])
-        if tuple(arr.shape) != tuple(p.shape):
-            raise ValueError(f"{_ref_key(name)}: shape {arr.shape} does not "
-                             f"fit the port's {tuple(p.shape)}")
-        state[name] = torch.from_numpy(np.ascontiguousarray(arr))
-    enc.load_state_dict(state)
-    enc.requires_grad_(False)
-    codebook = torch.from_numpy(np.asarray(flat["codebook"], np.float32))
-    return {"encoder": enc.to(device), "codebook": codebook.to(device)}
+    """Reference path-keyed arrays -> ``{"encoder": nn.Module, "decoder":
+    nn.Module, "codebook": (K, M) tensor}`` on ``device``."""
+    params = {"encoder": make_encoder(cfg), "decoder": make_decoder(cfg)}
+    for net in _NETS:
+        state = {}
+        for name, p in params[net].named_parameters():
+            key = _ref_key(net, name)
+            arr = np.asarray(flat[key], dtype=np.float32)
+            if arr.ndim in _TO_TORCH:
+                arr = arr.transpose(_TO_TORCH[arr.ndim])
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{key}: shape {arr.shape} does not fit "
+                                 f"the port's {tuple(p.shape)}")
+            state[name] = torch.from_numpy(np.ascontiguousarray(arr))
+        params[net].load_state_dict(state)
+        params[net].to(device)
+    # a copy: training updates the codebook in place
+    codebook = torch.tensor(np.asarray(flat["codebook"], np.float32))
+    params["codebook"] = codebook.to(device)
+    return params
 
 
 def load_npz(path: str, cfg: DVQAEConfig, *, device="cpu") -> dict:
@@ -63,18 +88,20 @@ def load_npz(path: str, cfg: DVQAEConfig, *, device="cpu") -> dict:
 
 
 def init_numpy_params(cfg: DVQAEConfig, seed: int) -> Dict[str, np.ndarray]:
-    """Encoder + codebook in the reference's layout and init scales:
-    conv kernels U(±1/sqrt(fan_in)), zero biases, N(0, 1) codebook."""
+    """Encoder, decoder and codebook in the reference's layout and init
+    scales: conv kernels U(±1/sqrt(c_in * k^d)), zero biases, N(0, 1)
+    codebook. Drawn in that order from one ``default_rng(seed)``."""
     rng = np.random.default_rng(seed)
     flat = {}
-    for name, p in make_encoder(cfg).named_parameters():
-        shape = tuple(p.shape)
-        if name.endswith(".weight"):
-            scale = 1.0 / math.sqrt(math.prod(shape[1:]))
-            w = rng.uniform(-scale, scale, shape).astype(np.float32)
-            flat[_ref_key(name)] = w.transpose(_TO_REF[len(shape)])
-        else:
-            flat[_ref_key(name)] = np.zeros(shape, np.float32)
+    for net, make in zip(_NETS, (make_encoder, make_decoder)):
+        for name, p in make(cfg).named_parameters():
+            shape = tuple(p.shape)
+            if name.endswith(".weight"):
+                scale = 1.0 / math.sqrt(math.prod(shape[1:]))
+                w = rng.uniform(-scale, scale, shape).astype(np.float32)
+                flat[_ref_key(net, name)] = w.transpose(_TO_REF[len(shape)])
+            else:
+                flat[_ref_key(net, name)] = np.zeros(shape, np.float32)
     flat["codebook"] = rng.standard_normal(
         (cfg.codebook_size, cfg.latent_dim)).astype(np.float32)
     return flat

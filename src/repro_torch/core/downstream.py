@@ -1,8 +1,9 @@
 """Downstream head on decoded OCTOPUS features (§3.1.1, §3.6).
 
-Port of the serving part of ``repro.core.downstream``: the paper's
-three-linear-layer probe as an ``nn.Module``, and :func:`accuracy`.
-Training the head (``sgd_train``) comes with the training slice.
+Port of the probe part of ``repro.core.downstream``: the paper's
+three-linear-layer probe as an ``nn.Module``, its training
+(:func:`sgd_train`, AdamW on cross-entropy) and :func:`accuracy`. The
+conv classifier baseline is not ported yet.
 """
 from __future__ import annotations
 
@@ -35,6 +36,32 @@ class LinearProbe(nn.Module):
         h = F.relu(z @ self.w1 + self.b1)
         h = F.relu(h @ self.w2 + self.b2)
         return h @ self.w3 + self.b3
+
+
+def xent_loss(head: nn.Module, x: torch.Tensor, y: torch.Tensor
+              ) -> torch.Tensor:
+    """Mean cross-entropy of the head's logits against int labels."""
+    logp = F.log_softmax(head(x), dim=-1)
+    return -logp.gather(1, y.long()[:, None]).mean()
+
+
+def sgd_train(generator: torch.Generator, head: nn.Module, x: torch.Tensor,
+              y, *, steps: int = 200, lr: float = 1e-3,
+              batch: int = 64) -> nn.Module:
+    """``steps`` AdamW steps on minibatches of (x, y) drawn with
+    replacement from ``generator``; trains ``head`` in place and returns
+    it."""
+    from repro_torch.optim.adamw import adamw_init, adamw_update
+    y = torch.as_tensor(y, device=x.device)
+    params = list(head.parameters())
+    opt = adamw_init(params)
+    n = x.shape[0]
+    for _ in range(steps):
+        sel = torch.randint(0, n, (min(batch, n),), generator=generator) \
+            .to(x.device)
+        grads = torch.autograd.grad(xent_loss(head, x[sel], y[sel]), params)
+        _, opt = adamw_update(params, grads, opt, lr=lr)
+    return head
 
 
 @torch.no_grad()

@@ -1,11 +1,12 @@
-"""Distributed Vector-Quantized Autoencoder (OCTOPUS §2.3): the encoders.
+"""Distributed Vector-Quantized Autoencoder (OCTOPUS §2.3).
 
-Port of ``repro.core.dvqae`` for the serving slice: the configuration
-(its own copy of the reference's dataclass), the image and speech
-encoders as ``nn.Module``s, and :func:`encode`. The decoders and the
-training forward pass come with the training slice.
+Port of ``repro.core.dvqae`` for the image and speech kinds: the
+configuration (its own copy of the reference's dataclass), the encoders
+and decoders as ``nn.Module``s, :func:`encode`, :func:`decode` and the
+training pass :func:`forward` with the Eq. 6 loss. Parameters are
+``{"encoder": nn.Module, "decoder": nn.Module, "codebook": (K, M)}``.
 
-The encoders take the reference's layouts — (B, H, W, C) images and
+The modules take the reference's layouts — (B, H, W, C) images and
 (B, T, C) frames — and :func:`encode` returns (B, P, M) latents, P =
 (H/4)*(W/4) or T/4. Inside they run in PyTorch's NCHW / NCT layout.
 """
@@ -13,13 +14,16 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.nn.layers import Conv1d, Conv2d, _instance_norm
+from repro_torch.nn.layers import (Conv1d, Conv2d, ConvTranspose2d,
+                                   _instance_norm)
+
+from .disentangle import DisentangledLatent, recombine, split_public_private
 
 
 @dataclass(frozen=True)
@@ -103,6 +107,57 @@ class SpeechEncoder(_ConvEncoder):
         return self._trunk(x.transpose(1, 2)).transpose(1, 2)
 
 
+class _ConvDecoder(nn.Module):
+    """from_latent conv, res blocks, then two 2x upsampling stages."""
+
+    def __init__(self, cfg: DVQAEConfig, conv, up, ksize: int, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        c, h = cfg.in_channels, cfg.hidden
+        g = generator
+        self.from_latent = conv(cfg.latent_dim, h, 3, generator=g)
+        self.up1 = up(h, h // 2, ksize, generator=g)
+        self.up2 = up(h // 2, c, ksize, generator=g)
+        for i in range(cfg.n_res_blocks):
+            self.add_module(f"res{i}", _ResBlock(conv, h, generator=g))
+        self.n_res_blocks = cfg.n_res_blocks
+
+    def _res(self, z):
+        h = self.from_latent(z)
+        for i in range(self.n_res_blocks):
+            h = getattr(self, f"res{i}")(h)
+        return h
+
+
+class ImageDecoder(_ConvDecoder):
+    """(B, H/4, W/4, M) latents -> (B, H, W, C) images: two stride-2
+    transposed convs (k=4)."""
+
+    def __init__(self, cfg: DVQAEConfig, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(cfg, Conv2d, ConvTranspose2d, 4,
+                         generator=generator)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        h = self._res(z.permute(0, 3, 1, 2))
+        h = F.relu(self.up1(F.relu(h), stride=2))
+        return self.up2(h, stride=2).permute(0, 2, 3, 1)
+
+
+class SpeechDecoder(_ConvDecoder):
+    """(B, T/4, M) latents -> (B, T, C) frames: two (repeat x2, conv k=3)
+    stages."""
+
+    def __init__(self, cfg: DVQAEConfig, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(cfg, Conv1d, Conv1d, 3, generator=generator)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        h = self._res(z.transpose(1, 2))
+        h = F.relu(self.up1(F.relu(h).repeat_interleave(2, dim=-1)))
+        return self.up2(h.repeat_interleave(2, dim=-1)).transpose(1, 2)
+
+
 def make_encoder(cfg: DVQAEConfig, *,
                  generator: Optional[torch.Generator] = None) -> nn.Module:
     if cfg.kind == "image":
@@ -113,6 +168,23 @@ def make_encoder(cfg: DVQAEConfig, *,
                      f"kind={cfg.kind!r}")
 
 
+def make_decoder(cfg: DVQAEConfig, *,
+                 generator: Optional[torch.Generator] = None) -> nn.Module:
+    if cfg.kind == "image":
+        return ImageDecoder(cfg, generator=generator)
+    if cfg.kind == "speech":
+        return SpeechDecoder(cfg, generator=generator)
+    raise ValueError(f"the port decodes image and speech DVQ-AEs, got "
+                     f"kind={cfg.kind!r}")
+
+
+class DVQAEOut(NamedTuple):
+    recon: torch.Tensor
+    latent: DisentangledLatent
+    loss: torch.Tensor
+    recon_loss: torch.Tensor
+
+
 def encode(params, cfg: DVQAEConfig, x: torch.Tensor):
     """-> (z (B, P, M), spatial): (H/4, W/4) for images, None for speech."""
     z = params["encoder"](x)
@@ -120,3 +192,26 @@ def encode(params, cfg: DVQAEConfig, x: torch.Tensor):
         B, H, W, M = z.shape
         return z.reshape(B, H * W, M), (H, W)
     return z, None
+
+
+def decode(params, cfg: DVQAEConfig, z: torch.Tensor, spatial=None
+           ) -> torch.Tensor:
+    """(B, P, M) latents -> reconstructions in the input's layout."""
+    if cfg.kind == "image":
+        H, W = spatial
+        z = z.reshape(z.shape[0], H, W, cfg.latent_dim)
+    return params["decoder"](z)
+
+
+def forward(params, cfg: DVQAEConfig, x: torch.Tensor, *,
+            group_axis=None) -> DVQAEOut:
+    """Full autoencoding pass with disentanglement (Eq. 6 objective)."""
+    z_e, spatial = encode(params, cfg, x)
+    dis = split_public_private(
+        z_e, params["codebook"], group_axis=group_axis,
+        apply_in=cfg.apply_in, n_groups=cfg.n_groups, n_slices=cfg.n_slices)
+    x_rec = decode(params, cfg, recombine(dis.public, dis.private), spatial)
+    recon = (x - x_rec).square().mean()
+    loss = (recon + cfg.alpha * dis.codebook_loss
+            + cfg.beta * dis.commit_loss + cfg.lam * dis.latent_loss)
+    return DVQAEOut(recon=x_rec, latent=dis, loss=loss, recon_loss=recon)

@@ -1,8 +1,9 @@
 """Codebook EMA updates (OCTOPUS §2.6, Eq. 7-9): the Step 5 refresh.
 
-Port of the part of ``repro.core.ema`` the uplink needs: the refresh from
+Port of the part of ``repro.core.ema`` the client needs: the refresh from
 the sufficient statistics that the encode kernel emits, so the refresh
-never re-runs the encoder. The fixed-point server merge comes with the
+never re-runs the encoder, and :func:`assignment_stats` for a refresh
+from explicit codes. The fixed-point server merge comes with the
 population slice.
 
     N_i <- gamma N_i + (1-gamma) n_i
@@ -24,9 +25,24 @@ class EMAState(NamedTuple):
 
 def init_ema(codebook: torch.Tensor) -> EMAState:
     K, _ = codebook.shape
+    codebook = codebook.detach()
     return EMAState(
         counts=torch.ones((K,), dtype=torch.float32, device=codebook.device),
         sums=codebook.float().clone(), codebook=codebook)
+
+
+def assignment_stats(z_e: torch.Tensor, indices: torch.Tensor,
+                     n_atoms: int):
+    """Batch sufficient statistics (counts (K,), sums (K, M)) of (..., M)
+    latents and their z_e.shape[:-1] int codes."""
+    M = z_e.shape[-1]
+    zf = z_e.reshape(-1, M).float()
+    idx = indices.reshape(-1).long()
+    n = torch.zeros((n_atoms,), dtype=torch.float32, device=zf.device)
+    n.index_add_(0, idx, torch.ones_like(idx, dtype=torch.float32))
+    s = torch.zeros((n_atoms, M), dtype=torch.float32, device=zf.device)
+    s.index_add_(0, idx, zf)
+    return n, s
 
 
 def ema_update_from_stats(state: EMAState, n: torch.Tensor, s: torch.Tensor,

@@ -1,30 +1,44 @@
-"""The OCTOPUS protocol (§2.2) on the serving path: Steps 3-6.
+"""The OCTOPUS protocol (§2.2): Steps 1-6.
 
-Port of the parts of ``repro.core.octopus`` that the uplink and the
-server decode run. ``ClientState`` / ``ServerState`` hold the parameters
-(``{"encoder": nn.Module, "codebook": (K, M) tensor}``); the optimizer
-state and the training transitions (Steps 1-2) come with the training
-slice.
+Port of ``repro.core.octopus``. ``ClientState`` / ``ServerState`` hold the
+parameters (``{"encoder": nn.Module, "decoder": nn.Module, "codebook":
+(K, M) tensor}``) and, for the server, its AdamW state.
+
+The reference's transitions are pure functions of immutable arrays. Here
+a training step updates the parameters and the optimizer moments IN
+PLACE and returns the state that holds them; a client owns copies of the
+server's modules from :func:`client_init` on, so fine-tuning a client
+never moves the global model.
+
+Server:  Step 1  pretrain the global DVQ-AE on public data (ATD)
+Clients: Step 2  one-shot local fine-tune, codebook frozen
+         Steps 3-4  quantize and transmit codes (``wire.session``)
+         Step 5  EMA codebook refresh
+Server:  Step 6  downstream training on the gathered codes
 """
 from __future__ import annotations
 
 import copy
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .dvqae import DVQAEConfig
-from .ema import EMAState, ema_update_from_stats, init_ema
+from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
+                                     leaves)
+
+from .dvqae import DVQAEConfig, DVQAEOut, forward
+from .ema import EMAState, assignment_stats, ema_update_from_stats, init_ema
 
 
 class ClientState(NamedTuple):
-    params: dict              # local DVQ-AE encoder + codebook
+    params: dict              # local DVQ-AE (encoder/decoder fine-tuned)
     ema: EMAState             # local codebook EMA accumulator
     step: int
 
 
 class ServerState(NamedTuple):
-    params: dict              # global DVQ-AE encoder + codebook
+    params: dict              # global DVQ-AE
+    opt: Optional[AdamWState] = None    # None: fresh at the first step
     step: int = 0
 
 
@@ -37,21 +51,119 @@ def transmit_bits(cfg: DVQAEConfig) -> int:
     return code_bits(cfg.codebook_size)
 
 
-def server_init(seed: int, cfg: DVQAEConfig, *, device) -> ServerState:
-    """A global model drawn in the reference's layout from ``seed``."""
-    from repro_torch.convert import init_numpy_params, params_from_numpy
-    return ServerState(params=params_from_numpy(
-        init_numpy_params(cfg, seed), cfg, device=device))
+def trainable(params, keys=("encoder", "decoder", "codebook")) -> dict:
+    """The parameter tree a step trains: ``{key: params[key]}``; its leaves
+    are the modules' parameters and the codebook, in that order."""
+    return {k: params[k] for k in keys}
 
+
+def _detached(out: DVQAEOut) -> DVQAEOut:
+    """A step's outputs without their autograd graph."""
+    lat = out.latent._replace(**{f: getattr(out.latent, f).detach()
+                                 for f in out.latent._fields})
+    return DVQAEOut(recon=out.recon.detach(), latent=lat,
+                    loss=out.loss.detach(),
+                    recon_loss=out.recon_loss.detach())
+
+
+def loss_grads(params, cfg: DVQAEConfig, batch: torch.Tensor, *,
+               keys=("encoder", "decoder", "codebook"), group_axis=None
+               ) -> Tuple[list, DVQAEOut]:
+    """One :func:`forward` and the gradients of its Eq. 6 loss with respect
+    to the leaves of ``trainable(params, keys)``, in leaf order. The
+    returned DVQAEOut holds no autograd graph."""
+    cb = params["codebook"].detach()
+    if "codebook" in keys:
+        cb = cb.requires_grad_(True)
+    out = forward({**params, "codebook": cb}, cfg, batch,
+                  group_axis=group_axis)
+    wrt = leaves(trainable({**params, "codebook": cb}, keys))
+    grads = torch.autograd.grad(out.loss, wrt)
+    return list(grads), _detached(out)
+
+
+# --------------------------------------------------------------- Step 1
+
+def server_init(seed: int, cfg: DVQAEConfig, *, device) -> ServerState:
+    """A global model drawn in the reference's layout from ``seed``, with a
+    fresh AdamW state."""
+    from repro_torch.convert import init_numpy_params, params_from_numpy
+    params = params_from_numpy(init_numpy_params(cfg, seed), cfg,
+                               device=device)
+    return ServerState(params=params, opt=adamw_init(trainable(params)))
+
+
+def server_pretrain_step(state: ServerState, cfg: DVQAEConfig,
+                         batch: torch.Tensor, lr: float = 1e-3,
+                         group_axis=None) -> Tuple[ServerState, DVQAEOut]:
+    """One ATD pretraining step of the global DVQ-AE (Step 1): every
+    parameter, the codebook included, is trained."""
+    grads, out = loss_grads(state.params, cfg, batch, group_axis=group_axis)
+    params = trainable(state.params)
+    opt = state.opt if state.opt is not None else adamw_init(params)
+    _, opt = adamw_update(params, grads, opt, lr=lr)
+    return ServerState(params=state.params, opt=opt,
+                       step=state.step + 1), out
+
+
+def server_pretrain(generator: torch.Generator, server: ServerState,
+                    cfg: DVQAEConfig, x: torch.Tensor, *, steps: int,
+                    batch: int = 32, lr: float = 1e-3
+                    ) -> Tuple[ServerState, Optional[DVQAEOut]]:
+    """Step 1 loop: ``steps`` pretraining steps over minibatches of ``x``
+    drawn with replacement from ``generator``. Returns (server, the last
+    step's DVQAEOut, None when steps == 0)."""
+    out = None
+    n = x.shape[0]
+    for _ in range(steps):
+        sel = torch.randint(0, n, (batch,), generator=generator)
+        server, out = server_pretrain_step(server, cfg,
+                                           x[sel.to(x.device)], lr=lr)
+    return server, out
+
+
+# --------------------------------------------------------------- Step 2
 
 def client_init(server: ServerState) -> ClientState:
-    """Deploy the global model to a client: its own copy of the encoder
-    and codebook, and a fresh EMA accumulator."""
+    """Deploy the global model to a client: its own copies of the encoder,
+    decoder and codebook, and a fresh EMA accumulator."""
     params = {"encoder": copy.deepcopy(server.params["encoder"]),
-              "codebook": server.params["codebook"].clone()}
+              "decoder": copy.deepcopy(server.params["decoder"]),
+              "codebook": server.params["codebook"].detach().clone()}
     return ClientState(params=params, ema=init_ema(params["codebook"]),
                        step=0)
 
+
+def client_finetune_step(client: ClientState, cfg: DVQAEConfig,
+                         batch: torch.Tensor, lr: float = 1e-4,
+                         opt: Optional[AdamWState] = None
+                         ) -> Tuple[ClientState, AdamWState, DVQAEOut]:
+    """One-shot fine-tuning: encoder + decoder, codebook FROZEN (§2.6);
+    a fresh AdamW state when ``opt`` is None."""
+    keys = ("encoder", "decoder")
+    params = trainable(client.params, keys)
+    if opt is None:
+        opt = adamw_init(params)
+    grads, out = loss_grads(client.params, cfg, batch, keys=keys)
+    _, opt = adamw_update(params, grads, opt, lr=lr)
+    return client._replace(step=client.step + 1), opt, out
+
+
+def client_finetune_encode(client: ClientState, cfg: DVQAEConfig,
+                           batch: torch.Tensor, *, lr: float = 1e-4,
+                           n_local_steps: int = 1
+                           ) -> Tuple[ClientState, torch.Tensor]:
+    """``n_local_steps`` of frozen-codebook fine-tuning, then the round's
+    ONE encoder pass into quantizer space."""
+    opt = None
+    for _ in range(n_local_steps):
+        client, opt, _ = client_finetune_step(client, cfg, batch, lr=lr,
+                                              opt=opt)
+    z, _ = client_encode(client.params, cfg, batch)
+    return client, z
+
+
+# ------------------------------------------------------------- Steps 3-5
 
 @torch.no_grad()
 def client_encode(params, cfg: DVQAEConfig, batch: torch.Tensor):
@@ -65,10 +177,39 @@ def client_encode(params, cfg: DVQAEConfig, batch: torch.Tensor):
     return z_e, spatial
 
 
-def client_codebook_refresh(client: ClientState, cfg: DVQAEConfig, *,
-                            stats, gamma: float = 0.99) -> ClientState:
-    """Step 5 EMA refresh of the local codebook (Eq. 9) from the encode
-    kernel's (counts, sums); no network pass runs."""
+def quantize_indices(cfg: DVQAEConfig, z: torch.Tensor,
+                     codebook: torch.Tensor) -> torch.Tensor:
+    """Transmitted codes of quantizer-space latents (..., M): (...,) atom
+    ids for plain VQ, (..., n_c) per-slice group indices for GSVQ."""
+    from .gsvq import gsvq_indices
+    from .vq import kernel_nearest_atom
+    if cfg.n_groups > 1 or cfg.n_slices > 1:
+        return gsvq_indices(z, codebook, n_groups=cfg.n_groups,
+                            n_slices=cfg.n_slices)
+    return kernel_nearest_atom(z, codebook)
+
+
+def refresh_stats(cfg: DVQAEConfig, z: torch.Tensor, indices: torch.Tensor):
+    """Eq. 7-8 statistics (counts (K,), sums (K, M)) of one batch. GSVQ
+    group indices vote their position's FULL latent onto the group's
+    representative atom ``g*ng + ng//2``."""
+    if cfg.n_groups > 1 or cfg.n_slices > 1:
+        ng = cfg.codebook_size // cfg.n_groups
+        indices = indices.long() * ng + ng // 2
+        z = z.unsqueeze(-2).expand(indices.shape + z.shape[-1:])
+    return assignment_stats(z, indices, cfg.codebook_size)
+
+
+def client_codebook_refresh(client: ClientState, cfg: DVQAEConfig,
+                            batch=None, gamma: float = 0.99, *,
+                            stats=None) -> ClientState:
+    """Step 5 EMA refresh of the local codebook (Eq. 9). With ``stats``
+    (the encode kernel's (counts, sums)) no network pass runs; without
+    them, one encoder pass over ``batch`` derives them."""
+    if stats is None:
+        z, _ = client_encode(client.params, cfg, batch)
+        idx = quantize_indices(cfg, z, client.params["codebook"])
+        stats = refresh_stats(cfg, z, idx)
     ema = ema_update_from_stats(client.ema, *stats, gamma=gamma)
     params = {**client.params, "codebook": ema.codebook}
     return ClientState(params=params, ema=ema, step=client.step)

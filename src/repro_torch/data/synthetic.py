@@ -1,0 +1,73 @@
+"""Synthetic content/style factorized images.
+
+Port of the image part of ``repro.data.synthetic``: content = which glyph
+is drawn (the downstream label), style = an identity's channel gains,
+bias and background tint (the private attribute). The reference draws
+with ``jax.random``; the port draws with an explicit CPU
+``torch.Generator``, so the two make different images from one seed.
+Data is drawn on the host, as a client's data is, and the session entry
+points move it to their device.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+
+class LabeledData(NamedTuple):
+    x: torch.Tensor          # images (N, H, W, C)
+    content: torch.Tensor    # public label (N,)
+    style: torch.Tensor      # private label / identity (N,)
+
+
+N_SHAPES = 8
+
+
+def _linspace(size: int) -> torch.Tensor:
+    """``jnp.linspace(-1, 1, size)`` in float32, by its own formula
+    ``start * (1 - t) + stop * t`` with ``t = i / (size - 1)``, so the
+    glyph edges fall on the same pixels as the reference's."""
+    if size == 1:
+        return torch.full((1,), -1.0)
+    t = torch.arange(size - 1, dtype=torch.float32) / (size - 1)
+    return torch.cat([-1.0 * (1.0 - t) + t, torch.ones(1)])
+
+
+def _shape_stencils(size: int) -> torch.Tensor:
+    """(N_SHAPES, size, size) binary glyphs: circle, disk, square, ..."""
+    r = _linspace(size)
+    yy, xx = torch.meshgrid(r, r, indexing="ij")
+    rad = torch.sqrt(xx ** 2 + yy ** 2)
+    ax, ay = xx.abs(), yy.abs()
+    glyphs = [
+        (rad - 0.6).abs() < 0.18,                                # circle
+        rad < 0.55,                                              # disk
+        (ax < 0.6) & (ay < 0.6) & ((ax > 0.35) | (ay > 0.35)),   # square
+        (ax < 0.18) | (ay < 0.18),                               # cross
+        (xx - yy).abs() < 0.22,                                  # diag
+        (xx + yy).abs() < 0.22,                                  # anti
+        ay < 0.25,                                               # hbar
+        ax < 0.25,                                               # vbar
+    ]
+    return torch.stack(glyphs).float()
+
+
+def make_images(generator: Optional[torch.Generator], n: int, *,
+                size: int = 32, channels: int = 3,
+                n_identities: int = 10) -> LabeledData:
+    """Factorized images on the CPU: x = style(identity)(glyph(content))."""
+    g = generator
+    content = torch.randint(0, N_SHAPES, (n,), generator=g)
+    style = torch.randint(0, n_identities, (n,), generator=g)
+    base = _shape_stencils(size)[content][..., None]           # (n, s, s, 1)
+    # per-identity style: channel gains, bias, background tint
+    gains = 0.5 + torch.rand((n_identities, channels), generator=g)
+    bias = 0.3 * torch.randn((n_identities, channels), generator=g)
+    tint = 0.2 * torch.rand((n_identities, channels), generator=g)
+    gs = gains[style][:, None, None, :]
+    b = bias[style][:, None, None, :]
+    t = tint[style][:, None, None, :]
+    noise = 0.05 * torch.randn((n, size, size, channels), generator=g)
+    x = base * gs + (1.0 - base) * t + b + noise
+    return LabeledData(x=x, content=content, style=style)

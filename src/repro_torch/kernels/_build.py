@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: launches of each hand-written kernel since the last :func:`reset_launches`
 LAUNCHES = {"pack_codes": 0, "unpack_codes": 0, "encode_codes": 0,
-            "decode_codes": 0}
+            "decode_codes": 0, "vq_nearest": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -40,6 +40,8 @@ _SIGNATURES = {
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _P),
     "rt_decode_codes": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
+    # z, codebook, out, N, K, M, device, stream
+    "rt_vq_nearest": (_P, _P, _P, _L, _I, _I, _I, _P),
 }
 
 _lib = None

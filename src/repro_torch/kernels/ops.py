@@ -1,7 +1,7 @@
 """Public kernel entry points: the CUDA kernel for a tensor on the card,
 the plain PyTorch version for a tensor on the CPU.
 
-Port of ``repro.kernels.ops`` for the serving path. The choice follows
+Port of ``repro.kernels.ops`` for the kernels of the port. The choice follows
 only from where the tensor lies: a CUDA tensor launches the hand-written
 kernel (or raises), a CPU tensor runs the plain version in
 :mod:`repro_torch.kernels.ref`. Nothing falls back from one to the other.
@@ -18,6 +18,7 @@ from ._build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
 from .decode_codes import decode_codes_cuda
 from .encode_codes import encode_codes_cuda
 from .pack_bits import pack_codes_cuda, unpack_codes_cuda
+from .vq_nn import vq_nearest_cuda
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -27,6 +28,14 @@ def _on_card(t: torch.Tensor) -> bool:
         return False
     raise ValueError(f"the port's kernels run on cuda or cpu tensors, got "
                      f"{t.device}")
+
+
+def vq_nearest(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """(N, M), (K, M) -> (N,) int32 nearest codebook atom per row."""
+    if _on_card(z):
+        return vq_nearest_cuda(z.float().contiguous(),
+                               codebook.float().contiguous())
+    return ref.vq_nearest_ref(z, codebook)
 
 
 def pack_codes(codes: torch.Tensor, *, bits: int) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of every CUDA kernel of the port.
 
-Port of ``repro.kernels.ref`` for the kernels on the serving path. The
+Port of ``repro.kernels.ref`` for the kernels of the port. The
 wrappers in :mod:`repro_torch.kernels.ops` run these for tensors on the
 CPU; ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 
@@ -115,6 +115,20 @@ def decode_codes_ref(words: torch.Tensor, table: torch.Tensor, *, bits: int,
     codes = codes[:count]
     padded = torch.cat([table, table.new_zeros(1, table.shape[1])])
     return padded[torch.where(codes < n_tab, codes, n_tab)]
+
+
+# --------------------------------------------------------------- vq search
+
+def vq_scores(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """(N, M) latents + (K, M) atoms -> (N, K) scores ``||e||^2 - 2 z.e``
+    in float32, whose argmin is the nearest atom."""
+    zf, cb = z.float(), codebook.float()
+    return (cb * cb).sum(-1)[None, :] - 2.0 * zf @ cb.T
+
+
+def vq_nearest_ref(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """(N, M), (K, M) -> (N,) int32 nearest atom; ties to the lower index."""
+    return vq_scores(z, codebook).argmin(-1).to(torch.int32)
 
 
 # ------------------------------------------------------------------ encode

@@ -1,9 +1,9 @@
-"""Base layers of the DVQ-AE encoder.
+"""Base layers of the DVQ-AE.
 
-Port of the conv, instance-norm and init parts of ``repro.nn.layers``.
-The public functions keep the reference's layouts — NHWC / NTC
-activations — and take PyTorch's weight layouts (OIHW / OIH); they
-permute inside. The modules (:class:`Conv2d`, :class:`Conv1d`) work in
+Port of the conv, transposed-conv, instance-norm and init parts of
+``repro.nn.layers``. The public functions keep the reference's layouts —
+NHWC / NTC activations — and take PyTorch's weight layouts (OIHW / OIH);
+they permute inside. The modules (:class:`Conv2d`, :class:`Conv1d`) work in
 PyTorch's own NCHW / NCT layout, so an encoder permutes once at entry and
 once at exit.
 
@@ -11,6 +11,14 @@ Padding is XLA's ``SAME`` rule, which PyTorch's ``padding="same"`` does
 not give at stride > 1: total = max((ceil(n/s) - 1)*s + k - n, 0), low =
 total // 2, high = the rest. Variances are population variances (ddof 0),
 as ``jnp.var`` computes them.
+
+The reference's transposed conv is ``lax.conv_transpose(...,
+padding="SAME")`` with ``transpose_kernel=False``: the HWIO kernel runs
+UNFLIPPED, as a plain correlation, over the stride-dilated input padded
+by lax's transpose rule (:func:`transpose_same_padding`). The port keeps
+that kernel as an OIHW conv weight and runs it through
+``F.conv_transpose2d`` with the weight's in/out axes swapped and its taps
+flipped, which computes the same correlation.
 """
 from __future__ import annotations
 
@@ -36,6 +44,31 @@ def _conv2d_nchw(x, weight, bias, stride: int):
     return F.conv2d(x, weight, bias, stride=stride)
 
 
+def transpose_same_padding(ksize: int, stride: int) -> Tuple[int, int]:
+    """lax's ``SAME`` padding (low, high) of the stride-dilated input of a
+    transposed conv (``lax._conv_transpose_padding``); the output is
+    ``size * stride`` long."""
+    pad_len = ksize + stride - 2
+    low = ksize - 1 if stride > ksize - 1 else -(-pad_len // 2)
+    return low, pad_len - low
+
+
+def _conv2d_transpose_nchw(x, weight, bias, stride: int):
+    """``F.conv_transpose2d`` at padding p computes the correlation over
+    the dilated input padded by k-1-p on each side; the rest of lax's
+    (low, high) padding is taken off or added after it."""
+    k = weight.shape[-1]
+    low, high = transpose_same_padding(k, stride)
+    p = max(0, k - 1 - max(low, high))
+    w = weight.transpose(0, 1).flip(2, 3)
+    lo, hi = low - (k - 1 - p), high - (k - 1 - p)
+    if lo == hi == 0:
+        return F.conv_transpose2d(x, w, bias, stride=stride, padding=p)
+    y = F.pad(F.conv_transpose2d(x, w, stride=stride, padding=p),
+              (lo, hi, lo, hi))
+    return y + bias[None, :, None, None]
+
+
 def _conv1d_nct(x, weight, bias, stride: int):
     p = same_padding(x.shape[-1], weight.shape[-1], stride)
     return F.conv1d(F.pad(x, p), weight, bias, stride=stride)
@@ -45,6 +78,15 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
            stride: int = 1) -> torch.Tensor:
     """NHWC conv with an OIHW weight and XLA ``SAME`` padding."""
     y = _conv2d_nchw(x.permute(0, 3, 1, 2), weight, bias, stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def conv2d_transpose(x: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, stride: int = 2) -> torch.Tensor:
+    """NHWC transposed conv with an OIHW weight (the reference's HWIO
+    kernel by ``transpose(3, 2, 0, 1)``), lax ``SAME`` padding: the output
+    is ``stride`` times the input's size."""
+    y = _conv2d_transpose_nchw(x.permute(0, 3, 1, 2), weight, bias, stride)
     return y.permute(0, 2, 3, 1)
 
 
@@ -100,6 +142,15 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
         return _conv2d_nchw(x, self.weight, self.bias, stride)
+
+
+class ConvTranspose2d(Conv2d):
+    """NCHW transposed conv, lax ``SAME`` padding; its weight is OIHW as
+    the reference's HWIO kernel is laid out (in = c_in, out = c_out), with
+    the reference's init scale ``1/sqrt(c_in * k * k)``."""
+
+    def forward(self, x: torch.Tensor, stride: int = 2) -> torch.Tensor:
+        return _conv2d_transpose_nchw(x, self.weight, self.bias, stride)
 
 
 class Conv1d(nn.Module):

@@ -1,20 +1,22 @@
 """Session facades over the wire protocol: one client entry, one server
 entry.
 
-Port of the serving part of ``repro.wire.session``:
+Port of ``repro.wire.session`` without the exactly-once send, the sync
+and the server runtime's options:
 
-  * :class:`OctopusClient` — ``transmit(batch)`` is the encode-only
-    uplink (Steps 3-4): ONE encoder pass feeding ONE ``ops.encode_codes``
-    dispatch that quantizes, bit-packs and sums the EMA statistics, and a
-    :class:`CodePayload` back. ``round(batch, finetune=0, refresh=...)``
-    adds the Step 5 refresh from those statistics; local fine-tuning
-    (``finetune > 0``) comes with the training slice.
-  * :class:`OctopusServer` — ``ingest(payload)`` returns an
-    :class:`AdmissionResult` verdict; accepted payloads land in a
-    versioned ``CodeStore`` keyed on the payload's OWN codebook version,
-    and ``features()`` / ``decode()`` decode against the registry
-    snapshot the payload was packed under, one fused dispatch per
-    version.
+  * :class:`OctopusClient` — ``round(batch)`` is the uplink entry: Step 2
+    (``n_local_steps`` of frozen-codebook fine-tuning, one by default),
+    then ONE encoder pass feeding ONE ``ops.encode_codes`` dispatch that
+    quantizes, bit-packs and sums the EMA statistics, the Step 5 refresh
+    from those statistics, and a :class:`CodePayload` back.
+    ``transmit(batch)`` is the encode-only uplink (Steps 3-4);
+    ``finetune(batch)`` is Step 2 alone.
+  * :class:`OctopusServer` — ``pretrain`` is Step 1; ``ingest(payload)``
+    returns an :class:`AdmissionResult` verdict; accepted payloads land
+    in a versioned ``CodeStore`` keyed on the payload's OWN codebook
+    version, and ``features()`` / ``decode()`` decode against the
+    registry snapshot the payload was packed under, one fused dispatch
+    per version.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU they raise rather than fall back (``repro_torch.resolve_device``).
@@ -53,20 +55,36 @@ def index_shape(cfg: DVQAEConfig, z_shape) -> Tuple[int, ...]:
 
 
 def _round_core(client: OC.ClientState, cfg: DVQAEConfig, batch, *,
-                refresh: bool):
-    """ONE encoder pass, ONE ``ops.encode_codes`` dispatch, optional
-    Step 5 refresh from the dispatch's statistics -> (client, z, words).
-    The whole batch is ONE record: z.reshape(1, B*P, M)."""
+                lr: float = 1e-4, gamma: float = 0.99,
+                n_local_steps: int = 1, refresh: bool = True):
+    """Steps 2-5: ``n_local_steps`` of fine-tuning, ONE encoder pass, ONE
+    ``ops.encode_codes`` dispatch, optional Step 5 refresh from the
+    dispatch's statistics -> (client, z, words). The whole batch is ONE
+    record: z.reshape(1, B*P, M)."""
     from repro_torch.kernels.ops import encode_codes
-    z, _ = OC.client_encode(client.params, cfg, batch)
+    client, z = OC.client_finetune_encode(client, cfg, batch, lr=lr,
+                                          n_local_steps=n_local_steps)
     words, counts, sums = encode_codes(
         z.reshape(1, -1, z.shape[-1]), client.params["codebook"][None],
         bits=OC.transmit_bits(cfg), n_groups=cfg.n_groups,
         n_slices=cfg.n_slices)
     if refresh:
-        client = OC.client_codebook_refresh(client, cfg,
+        client = OC.client_codebook_refresh(client, cfg, gamma=gamma,
                                             stats=(counts[0], sums[0]))
     return client, z, words
+
+
+def _on_device(state: OC.ServerState, device) -> OC.ServerState:
+    """The server state with its modules, codebook and AdamW moments on
+    ``device`` (modules move in place)."""
+    params = {"encoder": state.params["encoder"].to(device),
+              "decoder": state.params["decoder"].to(device),
+              "codebook": state.params["codebook"].to(device)}
+    opt = state.opt
+    if opt is not None:
+        opt = opt._replace(mu=[t.to(device) for t in opt.mu],
+                           nu=[t.to(device) for t in opt.nu])
+    return state._replace(params=params, opt=opt)
 
 
 class OctopusClient:
@@ -74,9 +92,14 @@ class OctopusClient:
     Deployed from an :class:`OctopusServer`, it runs on the server's
     device and stamps payloads with the server's codebook version."""
 
-    def __init__(self, server: "OctopusServer", *, client_id: int = 0):
+    def __init__(self, server: "OctopusServer", *, lr: float = 1e-4,
+                 gamma: float = 0.99, n_local_steps: int = 1,
+                 client_id: int = 0):
         self.cfg = server.cfg
         self.device = server.device
+        self.lr = lr
+        self.gamma = gamma
+        self.n_local_steps = n_local_steps
         self.client_id = int(client_id)
         self.state = OC.client_init(server.state)
         self.version = int(server.version)
@@ -85,18 +108,31 @@ class OctopusClient:
     def codebook(self) -> torch.Tensor:
         return self.state.params["codebook"]
 
-    def round(self, batch, *, labels=None, finetune: int = 0,
+    def _batch(self, batch) -> torch.Tensor:
+        return torch.as_tensor(batch, dtype=torch.float32, device=self.device)
+
+    def finetune(self, batch, *, steps: int = 1,
+                 lr: Optional[float] = None) -> None:
+        """Step 2 alone: ``steps`` of frozen-codebook local fine-tuning
+        under one fresh AdamW state."""
+        x = self._batch(batch)
+        opt = None
+        for _ in range(steps):
+            self.state, opt, _ = OC.client_finetune_step(
+                self.state, self.cfg, x, lr=self.lr if lr is None else lr,
+                opt=opt)
+
+    def round(self, batch, *, labels=None, finetune: Optional[int] = None,
               refresh: bool = True) -> CodePayload:
-        """The uplink entry: Steps 3-5 through the fused encode path,
+        """The uplink entry: Steps 2-5 through the fused encode path,
         stamped with the codebook version this client deployed from.
-        ``refresh=False`` skips the Step 5 EMA refresh."""
-        if finetune > 0:
-            raise NotImplementedError(
-                "local fine-tuning (Step 2) comes with the port's training "
-                "slice; call round(..., finetune=0) or transmit()")
-        x = torch.as_tensor(batch, dtype=torch.float32, device=self.device)
-        self.state, z, words = _round_core(self.state, self.cfg, x,
-                                           refresh=refresh)
+        ``finetune`` overrides the session's ``n_local_steps`` for this
+        round (0 skips Step 2); ``refresh=False`` skips the Step 5 EMA
+        refresh."""
+        n_local = self.n_local_steps if finetune is None else int(finetune)
+        self.state, z, words = _round_core(
+            self.state, self.cfg, self._batch(batch), lr=self.lr,
+            gamma=self.gamma, n_local_steps=n_local, refresh=refresh)
         return CodePayload.from_words(
             words, bits=OC.transmit_bits(self.cfg),
             shape=(1,) + index_shape(self.cfg, z.shape), n_records=1,
@@ -105,7 +141,7 @@ class OctopusClient:
 
     def transmit(self, batch, *, labels=None) -> CodePayload:
         """Encode-only uplink (Steps 3-4): no fine-tuning, no refresh."""
-        return self.round(batch, labels=labels, refresh=False)
+        return self.round(batch, labels=labels, finetune=0, refresh=False)
 
 
 class OctopusServer:
@@ -120,10 +156,7 @@ class OctopusServer:
                             "build one with OctopusServer.init(seed, cfg)")
         self.device = resolve_device(device)
         self.cfg = cfg
-        params = server.params
-        self.state = server._replace(params={
-            "encoder": params["encoder"].to(self.device),
-            "codebook": params["codebook"].to(self.device)})
+        self.state = _on_device(server, self.device)
         self.registry = CodebookRegistry(self.state.params["codebook"])
         self.store = CodeStore(cfg)
 
@@ -131,7 +164,8 @@ class OctopusServer:
     def init(cls, seed: int, cfg: DVQAEConfig, *, device=None
              ) -> "OctopusServer":
         """A server whose global model is drawn from ``seed`` in the
-        reference's layout (``convert.init_numpy_params``)."""
+        reference's layout (``convert.init_numpy_params``), with a fresh
+        AdamW state."""
         dev = resolve_device(device)
         return cls(OC.server_init(seed, cfg, device=dev), cfg, device=dev)
 
@@ -140,9 +174,31 @@ class OctopusServer:
         """Current (latest merged) codebook version."""
         return self.registry.latest
 
-    def deploy(self, *, client_id: int = 0) -> OctopusClient:
-        """Hand a client a session on the current global model."""
-        return OctopusClient(self, client_id=client_id)
+    def pretrain(self, generator: torch.Generator, x, *, steps: int,
+                 batch: int = 32, lr: float = 1e-3):
+        """Step 1: ATD pretraining of the global DVQ-AE on ``x``, minibatches
+        drawn from ``generator``. Re-pins the pretrained dictionary as the
+        current registry snapshot, which is only legal before any payload
+        landed: stored codes would otherwise decode against a dictionary
+        they were not packed under. Returns the last step's DVQAEOut."""
+        if len(self.store):
+            raise RuntimeError(
+                f"pretrain would move codebook version "
+                f"{self.registry.latest} under {len(self.store)} stored "
+                f"payload(s); pretrain before ingesting (Step 1 precedes "
+                f"Step 4)")
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        self.state, out = OC.server_pretrain(generator, self.state, self.cfg,
+                                             x, steps=steps, batch=batch,
+                                             lr=lr)
+        self.registry.pin_current(self.state.params["codebook"])
+        return out
+
+    def deploy(self, **client_kw) -> OctopusClient:
+        """Step 2: hand a client a session on the current global model;
+        ``client_kw`` go to :class:`OctopusClient` (``lr``, ``gamma``,
+        ``n_local_steps``, ``client_id``)."""
+        return OctopusClient(self, **client_kw)
 
     def precheck(self, p: CodePayload) -> Tuple[str, str]:
         """Wire-invariant admission check -> (verdict, reason): unknown

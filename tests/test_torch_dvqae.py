@@ -104,31 +104,46 @@ def test_encoder_matches_reference(tmp_path, kind):
                                   np.asarray(params["codebook"]))
 
 
+def _nest(flat):
+    """Path-keyed arrays -> the reference's nested parameter dict."""
+    out = {}
+    for key, v in flat.items():
+        *parents, leaf = key.split("/")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = jnp.asarray(v)
+    return out
+
+
 @pytest.mark.parametrize("kind", sorted(CASES))
 def test_numpy_init_has_reference_layout(kind):
-    """init_numpy_params names and shapes every encoder array and the
-    codebook exactly as the reference's init does, so either package can
-    load it; the JAX encoder run on those arrays matches the port's."""
+    """init_numpy_params names and shapes every array of the reference's
+    init -- encoder, decoder and codebook -- exactly as the reference
+    does, so either package can load it; the JAX encoder and decoder run
+    on those arrays match the port's."""
+    from repro.core.dvqae import decode as j_decode
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.core.dvqae import decode
     over, xshape = CASES[kind]
     jcfg, cfg = JConfig(**over), DVQAEConfig(**over)
     ref_flat, _ = _flatten_with_paths(init_dvqae(jax.random.PRNGKey(0),
                                                  jcfg))
-    ref_shapes = {k: v.shape for k, v in ref_flat.items()
-                  if not k.startswith("decoder/")}
     flat = init_numpy_params(cfg, seed=3)
-    assert {k: v.shape for k, v in flat.items()} == ref_shapes
-    jparams = {"encoder": {}, "codebook": jnp.asarray(flat["codebook"])}
-    for k, v in flat.items():
-        node, parts = jparams, k.split("/")
-        if parts[0] != "encoder":
-            continue
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = jnp.asarray(v)
-    from repro_torch.convert import params_from_numpy
+    assert {k: v.shape for k, v in flat.items()} == \
+        {k: v.shape for k, v in ref_flat.items()}
+    jparams = _nest(flat)
     tparams = params_from_numpy(flat, cfg)
+    back = params_to_numpy(tparams)
+    assert back.keys() == flat.keys()
+    for k, v in flat.items():
+        np.testing.assert_array_equal(back[k], v)
     x = np.random.default_rng(4).standard_normal(xshape).astype(np.float32)
-    jz, _ = j_encode(jparams, jcfg, jnp.asarray(x))
+    jz, sp = j_encode(jparams, jcfg, jnp.asarray(x))
     with torch.no_grad():
         z, _ = encode(tparams, cfg, _t(x))
+        rec = decode(tparams, cfg, z, sp)
     np.testing.assert_allclose(z.numpy(), np.asarray(jz), **TOL)
+    np.testing.assert_allclose(rec.numpy(),
+                               np.asarray(j_decode(jparams, jcfg, jz, sp)),
+                               **TOL)

@@ -29,6 +29,7 @@ from repro_torch.kernels.decode_codes import (decode_codes_cuda,  # noqa: E402
 from repro_torch.kernels.encode_codes import (encode_codes_cuda,  # noqa: E402
                                               stacked_slice_table)
 from repro_torch.kernels.pack_bits import code_bits, packing_dims  # noqa: E402
+from repro_torch.kernels.vq_nn import vq_nearest_cuda  # noqa: E402
 
 BITS = list(range(1, 13))
 
@@ -178,3 +179,5 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         decode_codes_cuda(torch.zeros((2, 1), dtype=torch.int32),
                           torch.zeros((4, 4)), bits=8, count=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        vq_nearest_cuda(torch.zeros((8, 4)), torch.zeros((16, 4)))
