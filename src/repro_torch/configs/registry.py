@@ -1,0 +1,39 @@
+"""Architecture registry of the port.
+
+Port of ``repro.configs.registry`` for the architectures the port runs.
+``get_config(name)`` returns the full assigned config, ``smoke_config``
+the reduced same-family variant the CPU tests use. Any other assigned
+architecture raises: ROADMAP.md lists it as still to be ported.
+"""
+from __future__ import annotations
+
+import importlib
+
+from .base import ModelConfig
+
+#: architectures the port runs (the reference's ARCH_IDS has ten)
+ARCH_IDS = ("qwen3_0_6b",)
+
+# CLI-facing aliases (the assignment's hyphenated ids)
+ALIASES = {"qwen3-0.6b": "qwen3_0_6b"}
+
+
+def canonical(name: str) -> str:
+    return ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
+
+
+def _module(name: str):
+    arch = canonical(name)
+    if arch not in ARCH_IDS:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported yet (the port runs "
+            f"{', '.join(ARCH_IDS)}); ROADMAP.md lists the rest")
+    return importlib.import_module(f"repro_torch.configs.{arch}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def smoke_config(name: str) -> ModelConfig:
+    return _module(name).SMOKE

@@ -13,6 +13,14 @@ port's parameters back in the reference's keys and layouts.
 :func:`init_numpy_params` draws parameters in the reference's layout from
 ``numpy.random.default_rng(seed)`` with the reference's init scales, so a
 program without JAX gets full-width weights through the same converter.
+
+The LM's parameters (``repro.models.transformer.init_lm``) are keyed
+``embed``, ``final_norm/scale``, ``head`` (untied only) and
+``segments/<s>/<block key>``, where each block array is stacked over the
+segment's layers on a leading axis. :func:`lm_params_from_numpy` unstacks
+them into the port's per-layer dicts (dense weights stay (in, out): the
+port computes ``x @ w``), :func:`lm_params_to_numpy` stacks them back, and
+:func:`init_numpy_lm_params` draws them in the reference's layout.
 """
 from __future__ import annotations
 
@@ -22,8 +30,11 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.downstream import LinearProbe
 from repro_torch.core.dvqae import DVQAEConfig, make_decoder, make_encoder
+from repro_torch.models.transformer import check_supported, segment_plan
 
 _TO_TORCH = {4: (3, 2, 0, 1), 3: (2, 1, 0)}     # HWIO -> OIHW, HIO -> OIH
 _TO_REF = {4: (2, 3, 1, 0), 3: (2, 1, 0)}       # OIHW -> HWIO, OIH -> HIO
@@ -132,3 +143,133 @@ def init_numpy_probe(in_dim: int, n_classes: int, *, hidden: int = 128,
             "w3": dense(hidden, n_classes),
             "b3": np.zeros(n_classes, np.float32)}
 
+
+
+# --------------------------------------------------------------------- LM
+
+def _norm_spec(prefix: str, kind: str, d: int) -> dict:
+    spec = {f"{prefix}/scale": ((d,), "ones")}
+    if kind != "rmsnorm":
+        spec[f"{prefix}/bias"] = ((d,), "zeros")
+    return spec
+
+
+def lm_block_spec(cfg: ModelConfig) -> Dict[str, tuple]:
+    """One attention + dense-MLP block: reference key -> (shape, init),
+    init one of "ones", "zeros" or "dense" (U(±1/sqrt(fan_in)))."""
+    d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    spec = _norm_spec("pre_norm", cfg.norm, d)
+    spec.update({"mixer/wq": ((d, nq), "dense"),
+                 "mixer/wk": ((d, nkv), "dense"),
+                 "mixer/wv": ((d, nkv), "dense"),
+                 "mixer/wo": ((nq, d), "dense")})
+    if cfg.qk_norm:
+        spec.update({"mixer/q_norm/scale": ((hd,), "ones"),
+                     "mixer/k_norm/scale": ((hd,), "ones")})
+    spec.update(_norm_spec("post_norm", cfg.norm, d))
+    spec.update({"ffn/wi": ((d, f), "dense"), "ffn/wg": ((d, f), "dense"),
+                 "ffn/wo": ((f, d), "dense")})
+    return spec
+
+
+def _nest(flat: Dict[str, torch.Tensor]) -> dict:
+    out: dict = {}
+    for key, t in flat.items():
+        *path, leaf = key.split("/")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = t
+    return out
+
+
+def _flatten(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, key + "/"))
+        else:
+            out[key] = v
+    return out
+
+
+def _tensor(flat, key: str, shape, device) -> torch.Tensor:
+    arr = np.asarray(flat[key], dtype=np.float32)
+    if tuple(arr.shape) != tuple(shape):
+        raise ValueError(f"{key}: shape {arr.shape} does not fit the "
+                         f"config's {tuple(shape)}")
+    return torch.tensor(arr, device=device)
+
+
+def lm_params_from_numpy(flat: Dict[str, np.ndarray], cfg: ModelConfig, *,
+                         device=None) -> dict:
+    """Reference path-keyed LM arrays -> the port's parameters on
+    ``device`` (cuda unless ``device="cpu"``): ``embed``, ``final_norm``,
+    ``head`` (untied only) and ``segments``, a list of per-layer dicts for
+    each segment."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    V, d = cfg.vocab_size, cfg.d_model
+    top = {"embed": _tensor(flat, "embed", (V, d), device)}
+    for key, (shape, _) in _norm_spec("final_norm", cfg.norm, d).items():
+        top[key] = _tensor(flat, key, shape, device)
+    if not cfg.tie_embeddings:
+        top["head"] = _tensor(flat, "head", (d, V), device)
+    params = _nest(top)
+    spec = lm_block_spec(cfg)
+    params["segments"] = []
+    for s, (_, _, n) in enumerate(segment_plan(cfg)):
+        stacked = {k: _tensor(flat, f"segments/{s}/{k}", (n,) + shape,
+                              device) for k, (shape, _) in spec.items()}
+        params["segments"].append(
+            [_nest({k: t[j] for k, t in stacked.items()}) for j in range(n)])
+    return params
+
+
+def lm_params_to_numpy(params: dict, cfg: ModelConfig
+                       ) -> Dict[str, np.ndarray]:
+    """The port's LM parameters -> reference path-keyed arrays, each block
+    array stacked over its segment's layers."""
+    top = {k: v for k, v in params.items() if k != "segments"}
+    flat = {k: t.detach().cpu().numpy() for k, t in _flatten(top).items()}
+    for s, layers in enumerate(params["segments"]):
+        per_layer = [_flatten(bp) for bp in layers]
+        for key in per_layer[0]:
+            flat[f"segments/{s}/{key}"] = np.stack(
+                [pl[key].detach().cpu().numpy() for pl in per_layer])
+    return flat
+
+
+def init_numpy_lm_params(cfg: ModelConfig, seed: int
+                         ) -> Dict[str, np.ndarray]:
+    """LM arrays in the reference's layout and init scales, float32, drawn
+    from one ``default_rng(seed)`` in this order: the embedding N(0, 1) *
+    0.02, the untied head (the same, transposed), then each segment's
+    dense weights U(±1/sqrt(fan_in)) in :func:`lm_block_spec`'s order;
+    norm scales are ones and biases zeros."""
+    check_supported(cfg)
+    rng = np.random.default_rng(seed)
+    V, d = cfg.vocab_size, cfg.d_model
+
+    def normal(shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+
+    flat = {"embed": normal((V, d))}
+    for key, (shape, init) in _norm_spec("final_norm", cfg.norm, d).items():
+        flat[key] = (np.ones if init == "ones" else np.zeros)(shape,
+                                                              np.float32)
+    if not cfg.tie_embeddings:
+        flat["head"] = np.ascontiguousarray(normal((V, d)).T)
+    for s, (_, _, n) in enumerate(segment_plan(cfg)):
+        for key, (shape, init) in lm_block_spec(cfg).items():
+            full = (n,) + shape
+            if init == "dense":
+                scale = np.float32(1.0 / math.sqrt(shape[0]))
+                arr = rng.random(full, dtype=np.float32) * (2 * scale) - scale
+            else:
+                arr = (np.ones if init == "ones" else np.zeros)(full,
+                                                                np.float32)
+            flat[f"segments/{s}/{key}"] = arr
+    return flat

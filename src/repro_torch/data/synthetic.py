@@ -1,8 +1,9 @@
-"""Synthetic content/style factorized images.
+"""Synthetic content/style factorized images, and LM token sequences.
 
-Port of the image part of ``repro.data.synthetic``: content = which glyph
-is drawn (the downstream label), style = an identity's channel gains,
-bias and background tint (the private attribute). The reference draws
+Port of the image and token parts of ``repro.data.synthetic``: content =
+which glyph is drawn (the downstream label), style = an identity's
+channel gains, bias and background tint (the private attribute); tokens
+with Zipf marginals and a bigram structure. The reference draws
 with ``jax.random``; the port draws with an explicit CPU
 ``torch.Generator``, so the two make different images from one seed.
 Data is drawn on the host, as a client's data is, and the session entry
@@ -71,3 +72,26 @@ def make_images(generator: Optional[torch.Generator], n: int, *,
     noise = 0.05 * torch.randn((n, size, size, channels), generator=g)
     x = base * gs + (1.0 - base) * t + b + noise
     return LabeledData(x=x, content=content, style=style)
+
+
+# ---------------------------------------------------------- LM token data
+
+def make_tokens(generator: Optional[torch.Generator], n_seqs: int,
+                seq_len: int, vocab: int) -> torch.Tensor:
+    """Synthetic LM corpus (n_seqs, seq_len) int32 on the CPU: Zipf
+    marginals (p(rank r) proportional to 1/r) and a bigram structure --
+    each next token is ``(tok + 1) % vocab`` with probability 0.5, else a
+    fresh Zipf draw -- as the reference's ``make_tokens``."""
+    g = generator
+    probs = 1.0 / torch.arange(1, vocab + 1, dtype=torch.float64)
+    probs = probs / probs.sum()
+    first = torch.multinomial(probs, n_seqs, replacement=True, generator=g)
+    rest = max(seq_len - 1, 0)
+    fresh = torch.multinomial(probs, n_seqs * rest, replacement=True,
+                              generator=g).reshape(rest, n_seqs)
+    mix = torch.rand((rest, n_seqs), generator=g) < 0.5
+    cols, tok = [first], first
+    for t in range(rest):
+        tok = torch.where(mix[t], (tok + 1) % vocab, fresh[t])
+        cols.append(tok)
+    return torch.stack(cols, dim=1)[:, :seq_len].to(torch.int32)

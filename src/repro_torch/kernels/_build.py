@@ -29,9 +29,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: launches of each hand-written kernel since the last :func:`reset_launches`
 LAUNCHES = {"pack_codes": 0, "unpack_codes": 0, "encode_codes": 0,
-            "decode_codes": 0, "vq_nearest": 0}
+            "decode_codes": 0, "vq_nearest": 0, "rmsnorm": 0,
+            "flash_attention": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # words/codes pointers, sizes, bits, device, stream
     "rt_pack_codes": (_P, _L, _P, _L, _I, _I, _P),
@@ -42,6 +44,12 @@ _SIGNATURES = {
     "rt_decode_codes": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
     # z, codebook, out, N, K, M, device, stream
     "rt_vq_nearest": (_P, _P, _P, _L, _I, _I, _I, _P),
+    # x, scale, out, rows, d, eps, device, stream
+    "rt_rmsnorm": (_P, _P, _P, _L, _I, _F, _I, _P),
+    # q, k, v, out, B, Tq, Tk, Hq, Hkv, D, causal, window, scale, device,
+    # stream
+    "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _F, _I, _P),
 }
 
 _lib = None

@@ -17,7 +17,9 @@ from . import ref
 from ._build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
 from .decode_codes import decode_codes_cuda
 from .encode_codes import encode_codes_cuda
+from .flash_attention import flash_attention_cuda
 from .pack_bits import pack_codes_cuda, unpack_codes_cuda
+from .rmsnorm import rmsnorm_cuda
 from .vq_nn import vq_nearest_cuda
 
 
@@ -81,3 +83,24 @@ def encode_codes(z: torch.Tensor, codebooks: torch.Tensor, *, bits: int,
                                  n_groups=n_groups, n_slices=n_slices)
     return ref.encode_codes_ref(z, codebooks, bits=bits, n_groups=n_groups,
                                 n_slices=n_slices)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
+            eps: float = 1e-6) -> torch.Tensor:
+    """(..., d) rows, (d,) scale -> ``x * rsqrt(mean(x^2) + eps) * scale``
+    (float32 on the card)."""
+    if _on_card(x):
+        return rmsnorm_cuda(x.contiguous(), scale.contiguous(), eps=eps)
+    return ref.rmsnorm_ref(x, scale, eps)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """(B, T, Hq, D) queries with GQA keys/values (B, T, Hkv, D) ->
+    (B, T, Hq, D). The kernel reads KV head ``h // (Hq // Hkv)`` itself,
+    so nothing is repeated (the reference's ``ops`` repeats k and v)."""
+    if _on_card(q):
+        return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal=causal,
+                                    window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)

@@ -11,6 +11,8 @@ pick up sign bits.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .pack_bits import packing_dims
@@ -224,3 +226,47 @@ def code_mismatches(codes: torch.Tensor, ref_codes: torch.Tensor,
     diff = codes.reshape(ref_scores.shape[:-1]).to(torch.int64) \
         != ref_codes.reshape(ref_scores.shape[:-1]).to(torch.int64)
     return int(diff.sum()), int((diff & ~near_ties(ref_scores)).sum())
+
+
+# ------------------------------------------------------------ LM kernels
+
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """(..., d) rows -> ``x * rsqrt(mean(x^2) + eps) * scale`` in float32,
+    cast back to x's dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+#: the masked-score fill of the flash kernels: finite, so a row whose
+#: first KV tile is wholly masked gives exp(0) = 1 there, not NaN
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        scale=None) -> torch.Tensor:
+    """(B, Tq, Hq, D) queries, (B, Tk, Hkv, D) keys and values ->
+    (B, Tq, Hq, D). Materialised softmax attention; query head ``h`` reads
+    KV head ``h // (Hq // Hkv)`` (GQA). Scores are scaled after the dot,
+    masked keys (``kpos > qpos`` when causal, ``kpos <= qpos - window``
+    when ``window``) score ``-1e30``."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    heads = torch.arange(H, device=q.device) // (H // k.shape[2])
+    kf = k.float().index_select(2, heads)
+    vf = v.float().index_select(2, heads)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
+    qpos = torch.arange(Tq, device=q.device)[:, None]
+    kpos = torch.arange(Tk, device=q.device)[None, :]
+    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)

@@ -1,0 +1,184 @@
+"""Attention: GQA self-attention with RoPE, qk-norm, sliding window and a
+KV cache.
+
+Port of ``repro.nn.attention`` (self-attention; cross-attention waits for
+the Whisper backbone). Two compute paths, as in the reference:
+
+  * the hand-written flash kernel (:func:`repro_torch.kernels.ops
+    .flash_attention`) for every call without a cache mask and with more
+    than one query: prefill and the teacher-forced forward. The reference
+    picks its plain ``_attend_full`` below 8192^2 score pairs and its
+    chunked online softmax above; all three compute the same function.
+  * the plain :func:`_attend_full` for a decode step (one query against
+    the cache under its valid-length mask), as the reference computes it
+    outside any kernel.
+
+GQA never repeats k and v: the kernel reads KV head ``h // q_per_kv``,
+and :func:`_attend_full` groups the query heads by KV head.
+
+The reference's ``hints.heads`` / ``hints.kv_heads`` are identities off a
+mesh, so the port leaves them out. A decode step writes the new key and
+value into the cache in place (the reference's ``dynamic_update_slice``
+returns a new array); the returned cache is the same tensors.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+
+from .layers import dense_init, init_rmsnorm, rmsnorm
+
+NEG_INF = -1e30
+
+
+# ------------------------------------------------------------------- RoPE
+
+def rope_freqs(head_dim: int, theta: float) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32)
+                            / head_dim))
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int,
+                 theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, T) positions -> (cos, sin), each (B, T, 1, head_dim / 2) float32.
+
+    The angles depend only on the positions, so a forward computes them
+    once for all its layers; the reference recomputes them in every
+    layer, with the same numbers."""
+    inv = rope_freqs(head_dim, theta).to(positions.device)
+    ang = positions[..., None].float() * inv
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def rotate(x: torch.Tensor, cos_sin) -> torch.Tensor:
+    """Rotate the two halves of x's head dim (not interleaved pairs) by
+    ``rope_cos_sin``'s angles, in float32."""
+    cos, sin = cos_sin
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (B, T, H, D); positions: (B, T) int."""
+    return rotate(x, rope_cos_sin(positions, x.shape[-1], theta))
+
+
+# ----------------------------------------------------------------- params
+
+def init_attention(cfg, *, generator: Optional[torch.Generator] = None
+                   ) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    p = {"wq": dense_init(d, nq * hd, generator=generator),
+         "wk": dense_init(d, nkv * hd, generator=generator),
+         "wv": dense_init(d, nkv * hd, generator=generator),
+         "wo": dense_init(nq * hd, d, generator=generator)}
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(hd)
+        p["k_norm"] = init_rmsnorm(hd)
+    return p
+
+
+# ------------------------------------------------------------------ cores
+
+def _attend_full(q, k, v, *, causal: bool, window: int = 0,
+                 kv_len_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (B, Tq, Hq, D), k/v: (B, Tk, Hkv, D) -> (B, Tq, Hq, D).
+
+    Plain softmax attention. Where the reference repeats k and v to Hq
+    heads first, this groups the Hq query heads into Hkv groups of
+    ``Hq // Hkv``: query head ``h`` meets KV head ``h // (Hq // Hkv)``
+    either way."""
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Tq, Hkv, H // Hkv, D)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) \
+        * (1.0 / math.sqrt(D))
+    qpos = torch.arange(Tq, device=q.device)[:, None]
+    kpos = torch.arange(Tk, device=q.device)[None, :]
+    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    if kv_len_mask is not None:                  # (B, Tk) valid-cache mask
+        mask = mask & kv_len_mask[:, None, None, None, :]
+    scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(B, Tq, H, D).to(q.dtype)
+
+
+def attend(q, k, v, *, causal: bool = True, window: int = 0,
+           kv_len_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The flash kernel without a cache mask and with more than one query;
+    the plain path otherwise. Inputs RoPE'd and normed; q (B, Tq, Hq, D),
+    k/v (B, Tk, Hkv, D)."""
+    if kv_len_mask is None and q.shape[1] > 1:
+        return ops.flash_attention(q, k, v, causal=causal, window=window)
+    return _attend_full(q, k, v, causal=causal, window=window,
+                        kv_len_mask=kv_len_mask)
+
+
+# ----------------------------------------------------------------- module
+
+class KVCache(NamedTuple):
+    k: torch.Tensor          # (B, S, n_kv, head_dim)
+    v: torch.Tensor
+    # position index is carried once per model, not per layer
+
+
+def attention(params: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
+              cache: Optional[KVCache] = None, cache_index: Optional[int] = None,
+              cos_sin=None):
+    """Self-attention forward.
+
+    Train/prefill: ``cache is None`` -> (out, KVCache of this call's k, v).
+    Decode: ``cache`` given, x is (B, 1, d); k and v go into the cache at
+    ``cache_index`` in place -> (out, the same cache). ``cos_sin`` is
+    ``rope_cos_sin(positions, ...)`` when the caller has it already."""
+    B, T, _ = x.shape
+    hd = cfg.resolved_head_dim
+    window = cfg.sliding_window
+    q = (x @ params["wq"]).reshape(B, T, cfg.n_heads, hd)
+    k = (x @ params["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
+    v = (x @ params["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q)
+        k = rmsnorm(params["k_norm"], k)
+    if cos_sin is None:
+        cos_sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+    q = rotate(q, cos_sin)
+    k = rotate(k, cos_sin)
+
+    if cache is None:
+        out = attend(q, k, v, causal=True, window=window)
+        new_cache = KVCache(k=k, v=v)
+    else:
+        S = cache.k.shape[1]
+        idx = int(cache_index)
+        cache.k[:, idx:idx + T] = k
+        cache.v[:, idx:idx + T] = v
+        kpos = torch.arange(S, device=x.device)[None, :]
+        valid = kpos <= idx
+        if window:
+            valid &= kpos > idx - window
+        out = attend(q, cache.k, cache.v, causal=False,
+                     kv_len_mask=valid.expand(B, S))
+        new_cache = cache
+    out = out.reshape(B, T, cfg.n_heads * hd) @ params["wo"]
+    return out, new_cache
+
+
+def init_cache(cfg, batch: int, seq_len: int, *, device=None,
+               dtype=torch.float32) -> KVCache:
+    hd = cfg.resolved_head_dim
+    shape = (batch, seq_len, cfg.n_kv_heads, hd)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))

@@ -1,7 +1,11 @@
-"""Base layers of the DVQ-AE.
+"""Base layers: the DVQ-AE's convs and the LM's norms and gated MLP.
 
-Port of the conv, transposed-conv, instance-norm and init parts of
-``repro.nn.layers``. The public functions keep the reference's layouts —
+Port of ``repro.nn.layers``. The LM layers are functions over parameter
+dicts with the reference's names (``scale``, ``bias``, ``wi``/``wg``/``wo``)
+and dense weights kept (in, out), used as ``x @ w``; ``rmsnorm`` runs the
+hand-written kernel through :func:`repro_torch.kernels.ops.rmsnorm`. The
+reference's ``hints.ffn_hidden`` is an identity off a mesh, so ``mlp``
+leaves it out. The public functions keep the reference's layouts —
 NHWC / NTC activations — and take PyTorch's weight layouts (OIHW / OIH);
 they permute inside. The modules (:class:`Conv2d`, :class:`Conv1d`) work in
 PyTorch's own NCHW / NCT layout, so an encoder permutes once at entry and
@@ -28,6 +32,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.kernels import ops
 
 
 def same_padding(size: int, ksize: int, stride: int) -> Tuple[int, int]:
@@ -127,6 +133,73 @@ def dense_init(d_in: int, d_out: int, *,
     """(d_in, d_out) weight used as ``x @ w``, U(±name_scale/sqrt(d_in))."""
     return uniform_init((d_in, d_out), name_scale / math.sqrt(d_in),
                         generator=generator)
+
+
+def embed_init(vocab: int, d: int, *,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """(vocab, d) embedding, N(0, 1) * 0.02."""
+    return torch.randn((vocab, d), generator=generator) * 0.02
+
+
+# ------------------------------------------------------------------ norms
+
+def init_rmsnorm(d: int) -> dict:
+    return {"scale": torch.ones(d)}
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis, through the hand-written kernel."""
+    return ops.rmsnorm(x, params["scale"], eps=eps)
+
+
+def init_layernorm(d: int) -> dict:
+    return {"scale": torch.ones(d), "bias": torch.zeros(d)}
+
+
+def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * params["scale"].float() + params["bias"].float()
+    return out.to(x.dtype)
+
+
+def init_norm(kind: str, d: int) -> dict:
+    return init_rmsnorm(d) if kind == "rmsnorm" else init_layernorm(d)
+
+
+def apply_norm(kind: str, params: dict, x: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    return rmsnorm(params, x, eps) if kind == "rmsnorm" \
+        else layernorm(params, x, eps)
+
+
+# ------------------------------------------------------------ activations
+
+def act_fn(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu":
+        return F.relu
+    raise ValueError(f"unknown activation {name}")
+
+
+# -------------------------------------------------------------- gated MLP
+
+def init_mlp(d_model: int, d_ff: int, *,
+             generator: Optional[torch.Generator] = None) -> dict:
+    """SwiGLU/GeGLU gated MLP: wi (gate), wg (up), wo (down)."""
+    return {"wi": dense_init(d_model, d_ff, generator=generator),
+            "wg": dense_init(d_model, d_ff, generator=generator),
+            "wo": dense_init(d_ff, d_model, generator=generator)}
+
+
+def mlp(params: dict, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+    h = act_fn(activation)(x @ params["wi"]) * (x @ params["wg"])
+    return h @ params["wo"]
 
 
 class Conv2d(nn.Module):
