@@ -12,10 +12,11 @@ import importlib
 from .base import ModelConfig
 
 #: architectures the port runs (the reference's ARCH_IDS has ten)
-ARCH_IDS = ("qwen3_0_6b",)
+ARCH_IDS = ("qwen3_0_6b", "jamba_v0_1_52b")
 
 # CLI-facing aliases (the assignment's hyphenated ids)
-ALIASES = {"qwen3-0.6b": "qwen3_0_6b"}
+ALIASES = {"qwen3-0.6b": "qwen3_0_6b",
+           "jamba-v0.1-52b": "jamba_v0_1_52b"}
 
 
 def canonical(name: str) -> str:

@@ -35,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.downstream import LinearProbe
 from repro_torch.core.dvqae import DVQAEConfig, make_decoder, make_encoder
 from repro_torch.models.transformer import check_supported, segment_plan
+from repro_torch.nn.ssm import dt_rank
 
 _TO_TORCH = {4: (3, 2, 0, 1), 3: (2, 1, 0)}     # HWIO -> OIHW, HIO -> OIH
 _TO_REF = {4: (2, 3, 1, 0), 3: (2, 1, 0)}       # OIHW -> HWIO, OIH -> HIO
@@ -154,22 +155,55 @@ def _norm_spec(prefix: str, kind: str, d: int) -> dict:
     return spec
 
 
-def lm_block_spec(cfg: ModelConfig) -> Dict[str, tuple]:
-    """One attention + dense-MLP block: reference key -> (shape, init),
-    init one of "ones", "zeros" or "dense" (U(±1/sqrt(fan_in)))."""
-    d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
-    nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+def lm_block_spec(cfg: ModelConfig, mixer: str = "attn",
+                  ffn: str = "dense") -> Dict[str, tuple]:
+    """One block of ``mixer`` (attn, mamba) and ``ffn`` (dense, moe):
+    reference key -> (shape, init). Inits: "ones", "zeros", "dense"
+    (U(±1/sqrt(shape[0])), the fan-in of an (in, out) weight or of a (K,
+    C) conv kernel), "expert" (U(±1/sqrt(shape[1])): an expert stack is
+    (E, in, out)), "a_log" (``log(1..N)`` on every channel) and "dt_bias"
+    (the inverse softplus of a log-uniform dt in [1e-3, 0.1])."""
+    d = cfg.d_model
     spec = _norm_spec("pre_norm", cfg.norm, d)
-    spec.update({"mixer/wq": ((d, nq), "dense"),
-                 "mixer/wk": ((d, nkv), "dense"),
-                 "mixer/wv": ((d, nkv), "dense"),
-                 "mixer/wo": ((nq, d), "dense")})
-    if cfg.qk_norm:
-        spec.update({"mixer/q_norm/scale": ((hd,), "ones"),
-                     "mixer/k_norm/scale": ((hd,), "ones")})
+    if mixer == "attn":
+        hd = cfg.resolved_head_dim
+        nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+        spec.update({"mixer/wq": ((d, nq), "dense"),
+                     "mixer/wk": ((d, nkv), "dense"),
+                     "mixer/wv": ((d, nkv), "dense"),
+                     "mixer/wo": ((nq, d), "dense")})
+        if cfg.qk_norm:
+            spec.update({"mixer/q_norm/scale": ((hd,), "ones"),
+                         "mixer/k_norm/scale": ((hd,), "ones")})
+    else:
+        s = cfg.ssm
+        di, N = s.expand * d, s.d_state
+        dtr = dt_rank(cfg)
+        spec.update({"mixer/in_proj": ((d, 2 * di), "dense"),
+                     "mixer/conv/kernel": ((s.d_conv, di), "dense"),
+                     "mixer/x_proj": ((di, dtr + 2 * N), "dense"),
+                     "mixer/dt_proj": ((dtr, di), "dense"),
+                     "mixer/dt_bias": ((di,), "dt_bias"),
+                     "mixer/A_log": ((di, N), "a_log"),
+                     "mixer/D": ((di,), "ones"),
+                     "mixer/out_proj": ((di, d), "dense")})
     spec.update(_norm_spec("post_norm", cfg.norm, d))
-    spec.update({"ffn/wi": ((d, f), "dense"), "ffn/wg": ((d, f), "dense"),
-                 "ffn/wo": ((f, d), "dense")})
+    if ffn == "dense":
+        f = cfg.d_ff
+        spec.update({"ffn/wi": ((d, f), "dense"), "ffn/wg": ((d, f), "dense"),
+                     "ffn/wo": ((f, d), "dense")})
+    else:
+        m = cfg.moe
+        E, f = m.n_experts, m.d_ff_expert
+        spec.update({"ffn/router": ((d, E), "dense"),
+                     "ffn/experts/wi": ((E, d, f), "expert"),
+                     "ffn/experts/wg": ((E, d, f), "expert"),
+                     "ffn/experts/wo": ((E, f, d), "expert")})
+        if m.n_shared_experts:
+            fs = m.n_shared_experts * f
+            spec.update({"ffn/shared/wi": ((d, fs), "dense"),
+                         "ffn/shared/wg": ((d, fs), "dense"),
+                         "ffn/shared/wo": ((fs, d), "dense")})
     return spec
 
 
@@ -218,9 +252,9 @@ def lm_params_from_numpy(flat: Dict[str, np.ndarray], cfg: ModelConfig, *,
     if not cfg.tie_embeddings:
         top["head"] = _tensor(flat, "head", (d, V), device)
     params = _nest(top)
-    spec = lm_block_spec(cfg)
     params["segments"] = []
-    for s, (_, _, n) in enumerate(segment_plan(cfg)):
+    for s, (mixer, ffn, n) in enumerate(segment_plan(cfg)):
+        spec = lm_block_spec(cfg, mixer, ffn)
         stacked = {k: _tensor(flat, f"segments/{s}/{k}", (n,) + shape,
                               device) for k, (shape, _) in spec.items()}
         params["segments"].append(
@@ -247,8 +281,10 @@ def init_numpy_lm_params(cfg: ModelConfig, seed: int
     """LM arrays in the reference's layout and init scales, float32, drawn
     from one ``default_rng(seed)`` in this order: the embedding N(0, 1) *
     0.02, the untied head (the same, transposed), then each segment's
-    dense weights U(±1/sqrt(fan_in)) in :func:`lm_block_spec`'s order;
-    norm scales are ones and biases zeros."""
+    arrays in :func:`lm_block_spec`'s order and inits; norm scales are
+    ones and biases zeros. At the full width of a 13 B model this needs
+    its size in host memory twice over: ``models.transformer.init_lm``
+    draws on the card instead."""
     check_supported(cfg)
     rng = np.random.default_rng(seed)
     V, d = cfg.vocab_size, cfg.d_model
@@ -256,20 +292,30 @@ def init_numpy_lm_params(cfg: ModelConfig, seed: int
     def normal(shape):
         return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
 
+    def draw(full, shape, init):
+        """An array of ``full`` shape (``shape`` stacked over a segment's
+        layers, or ``shape`` itself) with ``shape``'s init."""
+        if init in ("dense", "expert"):
+            fan_in = shape[1] if init == "expert" else shape[0]
+            scale = np.float32(1.0 / math.sqrt(fan_in))
+            return rng.random(full, dtype=np.float32) * (2 * scale) - scale
+        if init == "a_log":
+            return np.log(np.broadcast_to(
+                np.arange(1, shape[-1] + 1, dtype=np.float32), full)).copy()
+        if init == "dt_bias":
+            u = rng.random(full, dtype=np.float32)
+            dt = np.exp(u * np.float32(math.log(0.1) - math.log(1e-3))
+                        + np.float32(math.log(1e-3)))
+            return np.log(np.expm1(np.maximum(dt, np.float32(1e-4))))
+        return (np.ones if init == "ones" else np.zeros)(full, np.float32)
+
     flat = {"embed": normal((V, d))}
     for key, (shape, init) in _norm_spec("final_norm", cfg.norm, d).items():
-        flat[key] = (np.ones if init == "ones" else np.zeros)(shape,
-                                                              np.float32)
+        flat[key] = draw(shape, shape, init)
     if not cfg.tie_embeddings:
         flat["head"] = np.ascontiguousarray(normal((V, d)).T)
-    for s, (_, _, n) in enumerate(segment_plan(cfg)):
-        for key, (shape, init) in lm_block_spec(cfg).items():
-            full = (n,) + shape
-            if init == "dense":
-                scale = np.float32(1.0 / math.sqrt(shape[0]))
-                arr = rng.random(full, dtype=np.float32) * (2 * scale) - scale
-            else:
-                arr = (np.ones if init == "ones" else np.zeros)(full,
-                                                                np.float32)
-            flat[f"segments/{s}/{key}"] = arr
+    for s, (mixer, ffn, n) in enumerate(segment_plan(cfg)):
+        for key, (shape, init) in lm_block_spec(cfg, mixer, ffn).items():
+            flat[f"segments/{s}/{key}"] = draw((n,) + shape, shape, init) \
+                .astype(np.float32)
     return flat

@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: launches of each hand-written kernel since the last :func:`reset_launches`
 LAUNCHES = {"pack_codes": 0, "unpack_codes": 0, "encode_codes": 0,
             "decode_codes": 0, "vq_nearest": 0, "rmsnorm": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "selective_scan": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F = ctypes.c_float
@@ -50,6 +50,8 @@ _SIGNATURES = {
     # stream
     "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _F, _I, _P),
+    # decay, inp, c, h0, y, h_last, B, T, di, N, device, stream
+    "rt_selective_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None

@@ -20,6 +20,7 @@ from .encode_codes import encode_codes_cuda
 from .flash_attention import flash_attention_cuda
 from .pack_bits import pack_codes_cuda, unpack_codes_cuda
 from .rmsnorm import rmsnorm_cuda
+from .selective_scan import check_scan_args, selective_scan_cuda
 from .vq_nn import vq_nearest_cuda
 
 
@@ -104,3 +105,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     v.contiguous(), causal=causal,
                                     window=window)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+def selective_scan(decay: torch.Tensor, inp: torch.Tensor, c: torch.Tensor,
+                   h0: torch.Tensor):
+    """Mamba recurrence and output: decay, inp (B, T, di, N), c (B, T, N),
+    h0 (B, di, N), float32 and contiguous -> (y (B, T, di), h_last
+    (B, di, N)), ``h_t = decay_t * h_{t-1} + inp_t``, ``y_t = <h_t, c_t>``.
+    Anything else raises, on the card and on the CPU alike."""
+    if _on_card(decay):
+        return selective_scan_cuda(decay, inp, c, h0)
+    check_scan_args(decay, inp, c, h0)
+    return ref.selective_scan_ref(decay, inp, c, h0)

@@ -270,3 +270,17 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def selective_scan_ref(decay: torch.Tensor, inp: torch.Tensor,
+                       c: torch.Tensor, h0: torch.Tensor):
+    """The sequential loop: ``h_t = decay_t * h_{t-1} + inp_t``, ``y_t =
+    <h_t, c_t>_N``. decay, inp (B, T, di, N); c (B, T, N); h0 (B, di, N)
+    -> (y (B, T, di), h_last (B, di, N)), float32."""
+    d, i, cf = decay.float(), inp.float(), c.float()
+    h = h0.float()
+    ys = []
+    for t in range(d.shape[1]):
+        h = d[:, t] * h + i[:, t]
+        ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
+    return torch.stack(ys, 1), h

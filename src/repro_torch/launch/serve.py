@@ -2,13 +2,19 @@
 serve step (KV caches).
 
 Port of ``repro.launch.serve``. Runs on the CUDA device unless
-``--device cpu`` is given; weights are drawn in the reference's layout
-from ``--seed`` (:func:`repro_torch.convert.init_numpy_lm_params`) and
-carried through the converter, prompts from the port's ``make_tokens``.
+``--device cpu`` is given; weights are drawn by
+:func:`repro_torch.models.transformer.init_lm` on that device from
+``--seed``, prompts come from the port's ``make_tokens``.
 
     python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --batch 8 --prompt-len 128 --gen 128
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch jamba-v0.1-52b --smoke --device cpu
+
+The full ``jamba-v0.1-52b`` (32 layers, 192 GiB in float32) needs more
+than one card and waits for the port of the distribution layer; one
+8-layer period of it runs in ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -19,7 +25,6 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, smoke_config
-from repro_torch.convert import init_numpy_lm_params, lm_params_from_numpy
 from repro_torch.data.synthetic import make_tokens
 from repro_torch.distributed import steps as S
 from repro_torch.models import transformer as T
@@ -61,8 +66,8 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    params = lm_params_from_numpy(init_numpy_lm_params(cfg, args.seed), cfg,
-                                  device=dev)
+    params = T.init_lm(torch.Generator(dev).manual_seed(args.seed), cfg,
+                       device=dev)
     prompts = make_tokens(torch.Generator().manual_seed(args.seed),
                           args.batch, args.prompt_len,
                           cfg.vocab_size).to(dev)

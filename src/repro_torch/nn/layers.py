@@ -1,4 +1,5 @@
-"""Base layers: the DVQ-AE's convs and the LM's norms and gated MLP.
+"""Base layers: the DVQ-AE's convs and the LM's norms, gated MLP and the
+Mamba mixer's causal depthwise conv.
 
 Port of ``repro.nn.layers``. The LM layers are functions over parameter
 dicts with the reference's names (``scale``, ``bias``, ``wi``/``wg``/``wo``)
@@ -119,12 +120,19 @@ def instance_norm_1d(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return _instance_norm(x, (1,), eps)
 
 
+def _draw_device(generator: Optional[torch.Generator]):
+    return None if generator is None else generator.device
+
+
 def uniform_init(shape, scale: float, *,
                  generator: Optional[torch.Generator] = None,
                  dtype=torch.float32) -> torch.Tensor:
-    """U(-scale, scale) on the CPU from an explicit generator."""
-    return (torch.rand(shape, generator=generator, dtype=dtype) * 2.0 - 1.0) \
-        * scale
+    """U(-scale, scale) from an explicit generator, on its device (the CPU
+    without one). Formed in place: a 3.8 GB expert stack drawn on the card
+    makes no temporaries."""
+    return torch.rand(shape, generator=generator, dtype=dtype,
+                      device=_draw_device(generator)) \
+        .mul_(2.0).sub_(1.0).mul_(scale)
 
 
 def dense_init(d_in: int, d_out: int, *,
@@ -137,8 +145,9 @@ def dense_init(d_in: int, d_out: int, *,
 
 def embed_init(vocab: int, d: int, *,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """(vocab, d) embedding, N(0, 1) * 0.02."""
-    return torch.randn((vocab, d), generator=generator) * 0.02
+    """(vocab, d) embedding, N(0, 1) * 0.02, on the generator's device."""
+    return torch.randn((vocab, d), generator=generator,
+                       device=_draw_device(generator)).mul_(0.02)
 
 
 # ------------------------------------------------------------------ norms
@@ -200,6 +209,27 @@ def init_mlp(d_model: int, d_ff: int, *,
 def mlp(params: dict, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
     h = act_fn(activation)(x @ params["wi"]) * (x @ params["wg"])
     return h @ params["wo"]
+
+
+# ------------------------------------------------------ causal depthwise
+
+def init_causal_conv1d(channels: int, ksize: int, *,
+                       generator: Optional[torch.Generator] = None) -> dict:
+    """Depthwise kernel (K, C), U(±1/sqrt(K)), the reference's layout."""
+    return {"kernel": uniform_init((ksize, channels), 1.0 / math.sqrt(ksize),
+                                   generator=generator)}
+
+
+def causal_conv1d(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise conv of the Mamba mixer, no bias: x (B, T, C) and
+    ``params["kernel"]`` (K, C) -> (B, T, C), x left-padded by K - 1.
+    ``F.conv1d`` with groups C and the weight as (C, 1, K) computes it:
+    both frameworks cross-correlate, so the taps are not flipped."""
+    k = params["kernel"]
+    K, C = k.shape
+    xt = F.pad(x.transpose(1, 2), (K - 1, 0))
+    return F.conv1d(xt, k.T.unsqueeze(1), groups=C).transpose(1, 2) \
+        .contiguous()
 
 
 class Conv2d(nn.Module):

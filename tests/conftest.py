@@ -14,6 +14,8 @@ def pytest_configure(config):
     # overrides these filters inside its block.)
     config.addinivalue_line(
         "filterwarnings", r"error:.*use repro\.:DeprecationWarning")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without one")
 
 
 def abstract_mesh(sizes, names):
