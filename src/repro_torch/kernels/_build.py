@@ -11,6 +11,12 @@ the module is imported: :func:`library` builds at the first launch.
 Every C entry takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()``; :func:`check` raises when that is not 0.
 Each launch adds one to its kernel's count in :data:`LAUNCHES`.
+
+The launch path is lean because at a decode step's shapes it is most of a
+call: :func:`stream_of` reads the raw stream handle without building a
+``torch.cuda.Stream``, and the C entries share ``csrc/launch.cuh``, which
+sets the device only when it is not current and does once-per-device setup
+once.
 """
 from __future__ import annotations
 
@@ -21,6 +27,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -143,6 +151,7 @@ def check(err: int, kernel: str) -> None:
 
 
 def stream_of(t) -> int:
-    """Raw handle of PyTorch's current stream on ``t``'s device."""
-    import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Raw handle of PyTorch's current stream on ``t``'s device, read
+    without building a ``torch.cuda.Stream`` object (the call Triton's
+    launcher makes)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -18,6 +18,7 @@
 // Rows are copies, so the result is bit-exact against the plain version; a
 // row index past the table writes zeros, as the one-hot gather does.
 #include "bits.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -78,7 +79,7 @@ extern "C" int rt_decode_codes(const int* words, const int* phases,
                                long long count, int n_tab, int F, int rows,
                                int S, int bits, int device, void* stream) {
   if (bits < 1 || bits > 32 || F < 1 || S < 1) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = rt::use_device(device);
   if (err != cudaSuccess) return err;
   const bool vec4 = F % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(table) % 16 == 0 &&

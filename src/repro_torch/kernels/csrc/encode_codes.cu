@@ -37,6 +37,7 @@
 //    order; counts by integer atomics. Each block writes one partial, and
 //    a second kernel adds the partials in a fixed order.
 #include "bits.cuh"
+#include "launch.cuh"
 
 #include <cmath>
 
@@ -283,7 +284,7 @@ extern "C" int rt_encode_codes(const float* z, const float* table, int* words,
       K % ng != 0 || bn % S != 0 || bn % group_codes(bits) != 0 ||
       bn % 32 != 0 || bn > 1024 || R < 1 || NB < 1)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = rt::use_device(device);
   if (err != cudaSuccess) return err;
   int MT = 4;
   while (MT < m) MT *= 2;

@@ -1,5 +1,7 @@
 // Causal / sliding-window attention with an online softmax over KV tiles
-// (flash attention), float32, GQA by head index.
+// (flash attention), float32 in and out, GQA by head index, its two
+// products on TF32 tensor cores with a 3-pass split that keeps FP32
+// accuracy.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::
 // flash_attention_pallas (_flash_kernel). Same function: scores of q
@@ -9,80 +11,134 @@
 // denominator l, weighted sum acc) per query row, and the output
 // acc / max(l, 1e-30).
 //
-// Bound on the H100: FP32 operations. A prefill of 8 x 1,024 tokens with
+// Bound on the H100: tensor operations. A prefill of 8 x 1,024 tokens with
 // 16 query heads of 128 does 4 * D FLOP per unmasked (query, key) pair,
-// 34.4 GFLOP causal, 0.513 ms at the 67 TFLOP/s FP32 peak, against 201 MB
-// of q, k, v and output (0.060 ms). Tensor cores would need TF32 or bf16;
-// this kernel keeps the reference's FP32 products and runs on the FMA
-// pipes.
+// 34.4 GFLOP causal. One TF32 pass keeps ~3 decimal digits, and attention
+// on N(0, 1) inputs then lands ~1e-3 off the plain FP32 version, far past
+// the port's 2e-5 tolerance. So every product is taken in three passes,
+// a * b ~ a_hi * b_hi + a_hi * b_lo + a_lo * b_hi with a_hi = a rounded to
+// TF32 (to nearest, ties away, as cvt.rna) and a_lo = a - a_hi cut to TF32,
+// each pass a TF32 mma with FP32 accumulation, which lands ~1e-6 off it
+// (the CPU model of this arithmetic in tests/test_torch_lm_kernels.py holds
+// both). The bound is then 3 x 34.4 GFLOP at 495 TFLOP/s TF32, 0.208 ms;
+// the FP32 FMA pipes would need 0.513 ms at 67 TFLOP/s. q, k, v and the
+// output are 201 MB (0.060 ms).
 //
 // Design, and what differs from the TPU kernel:
 //  * The TPU grid walks the KV axis in order and carries (m, l, acc) in
 //    VMEM scratch from one grid step to the next. Blocks on Hopper run in
-//    no order, so one block owns a 64-row query tile of one (batch, head)
-//    and loops over the KV tiles itself, keeping m and l in registers
-//    (replicated over the 16 lanes that share a row) and acc in registers.
-//  * A causal block stops at its diagonal tile, and a window block starts
-//    at the first tile its first row can see. The TPU kernel visits every
-//    tile; a skipped tile is one that is wholly masked for every row of
-//    the block, which contributes nothing once a row has seen a real score
-//    (its p underflows to 0) and is wiped by corr = exp(-1e30 - m) = 0
-//    when the row has not -- so the result is the same.
+//    no order, so one block of 4 warps owns a 64-row query tile of one
+//    (batch, head) and loops over 32-key KV tiles itself. Each warp owns 16
+//    query rows: its scores (16 x 32), its output rows (16 x D) and its
+//    (m, l) stay in registers, in the mma.sync accumulator layout.
+//  * Products: mma.sync.aligned.m16n8k8 TF32. S = (q * scale) K^T and
+//    O += P V each take three mmas per fragment; every FP32 operand is
+//    split into (hi, lo) in registers as it is taken from shared memory (or,
+//    for P, from the score accumulators). The two small passes of S
+//    accumulate apart from the large one and are added after the loop over
+//    D, which also gives the tensor pipe two independent chains.
+//  * Layouts: within each 8-wide step of a contraction the index is
+//    permuted the same way on both operands (lane column t <-> elements 2t
+//    and 2t+1), so a thread takes its two Q or K values with one 8-byte
+//    load, and the score accumulators are already P's A fragment (no
+//    shuffle). Q and K rows are padded to D + 8 floats and V rows to D + 4,
+//    so every fragment load of a warp falls in 32 different banks.
+//  * K and V tiles are double-buffered in shared memory and filled by
+//    16-byte cp.async.cg copies: the next tile's load runs under this
+//    tile's products. Rows past Tk are zero-filled by the copy and masked.
+//    The query tile is loaded once, scaled as the TPU kernel scales q.
+//  * The online softmax stays in FP32 on the FMA pipes: the row max over a
+//    quad of lanes by two xor shuffles, expf, the running l kept per lane
+//    and summed over the quad at the end.
+//  * A causal block stops at its diagonal tile and a window block starts at
+//    the first tile its first row can see; within a block a warp skips a
+//    tile that is masked for all 16 of its rows. The TPU kernel visits
+//    every tile. A skipped tile is wholly masked for every row it is
+//    skipped for: after a row's diagonal its p underflows to 0, and before
+//    its window its p would be wiped by corr = exp(-1e30 - m) = 0 at the
+//    row's first real score -- so the result is the same.
 //  * GQA: query head h reads KV head h / (Hq / Hkv) straight from k and v,
 //    so no repeated copy of k and v is made (the TPU wrapper repeats them).
-//  * Layout: q, k, v and the output stay (B, T, H, D) contiguous; the
-//    kernel computes the row offsets, so no transpose to (B*H, T, D) and no
-//    padding to whole tiles: rows past Tq or Tk load as zeros and are
-//    masked or not written.
-//  * Work: 256 threads as a 16 x 16 grid. For S = Q K^T each thread
-//    computes a 4 x 4 patch of the 64 x 64 score tile (rows 4*ty.., keys
-//    tx + 16*j) from 16-byte shared-memory loads; for O += P V a 4 x (D/16)
-//    patch of the output (rows 4*ty.., columns 4*tx + 64*jj). Row max and
-//    row sum are xor-butterfly shuffles over the 16 lanes of a row, so all
-//    16 hold the same values. The K tile's shared memory holds P once the
-//    scores are read. Q and K rows are padded to D + 4 floats so the 16
-//    rows read at once fall in different banks.
+//  * Layout in memory: q, k, v and the output stay (B, T, H, D) contiguous;
+//    no transpose and no padding to whole tiles: query rows past Tq load
+//    as zeros and are not written.
 //  * Blocks of the last query tiles (the most KV tiles when causal) are
-//    numbered first, so the longest blocks start first.
+//    numbered first, so the longest blocks start first. 101 KB of shared
+//    memory at D = 128: two blocks (8 warps) an SM.
 //  * Float32 only, D of 64 or 128 (ROADMAP lists bf16 and other D as open).
+//    wgmma fed by TMA, the full TF32 rate, is a later step.
 #include <cuda_runtime.h>
+
+#include "launch.cuh"
 
 #include <cstdint>
 
 namespace {
 
-constexpr int BQ = 64;                   // query rows per block
-constexpr int BK = 64;                   // keys per KV tile
-constexpr int kThreads = 256;
+constexpr int BQ = 64;                   // query rows a block
+constexpr int BK = 32;                   // keys a KV tile
+constexpr int kWarps = BQ / 16;
+constexpr int kThreads = 32 * kWarps;
+constexpr int NS = BK / 8;               // 8-key steps of a tile
 constexpr float kNegInf = -1e30f;
 
 template <int D>
 struct Tile {
-  static constexpr int QS = D + 4;       // padded row stride of Q and K tiles
-  static constexpr int PS = BK + 4;      // padded row stride of the P tile
+  static constexpr int QS = D + 8;       // row stride of Q and K (floats)
+  static constexpr int VS = D + 4;       // row stride of V
   static constexpr int kQ = BQ * QS;
-  static constexpr int kK = BK * QS;     // also holds P (BQ * PS <= kK)
-  static constexpr int kV = BK * D;
-  static constexpr int NJ = D / 64;      // float4 output columns per thread
-  static constexpr size_t bytes = sizeof(float) * (kQ + kK + kV);
-  static_assert(BQ * PS <= kK, "P does not fit in the K tile");
+  static constexpr int kK = BK * QS;     // one stage
+  static constexpr int kV = BK * VS;
+  static constexpr size_t bytes = sizeof(float) * (kQ + 2 * kK + 2 * kV);
 };
 
-__device__ __forceinline__ float row16_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// x ~ hi + lo, both TF32. hi is x rounded to nearest, ties away from zero:
+// the value cvt.rna.tf32.f32 gives for every non-NaN x, in two integer
+// operations (ptxas expands the cvt into a longer sequence with NaN tests,
+// and the split runs ~10 times a product). The remainder x - hi is exact in
+// FP32 and is cut to TF32 toward zero, as the tensor core reads an FP32
+// register (it drops the low 13 bits). Rounding lo to nearest as well would
+// move a product by < 2^-22 of itself, cost two more operations, and carry
+// the GPU's canonical NaN 0x7fffffff into the sign bit, so a NaN in q, k or
+// v would come out as a number; cut toward zero, a NaN stays a NaN in lo.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
 }
 
-__device__ __forceinline__ float row16_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// d += a (16 x 8, row) * b (8 x 8, col), TF32 in, FP32 accumulate
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ float comp(const float4& v, int c) {
-  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 template <int D>
@@ -92,177 +148,219 @@ __global__ void __launch_bounds__(kThreads, 2)
                  int Hq, int Tq, int Tk, int q_per_kv, int n_bh, int n_qt,
                  int causal, int window, float scale) {
   using L = Tile<D>;
+  constexpr int D4 = D / 4;
+  constexpr int NT = D / 8;              // 8-column output tiles
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                      // (BQ, QS), q * scale
-  float* Ks = Qs + L::kQ;                // (BK, QS); then P (BQ, PS)
-  float* Vs = Ks + L::kK;                // (BK, D)
-  float* Ps = Ks;
+  float* Ks = Qs + L::kQ;                // 2 x (BK, QS)
+  float* Vs = Ks + 2 * L::kK;            // 2 x (BK, VS)
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // mma group and lane in group
   const int bh = blockIdx.x % n_bh;
   const int qt = n_qt - 1 - blockIdx.x / n_bh;
   const int b = bh / Hq, h = bh % Hq, hk = h / q_per_kv;
   const int Hkv = Hq / q_per_kv;
   const int q0 = qt * BQ;
-  constexpr int D4 = D / 4;
-
-  // the query tile, scaled, as the TPU kernel scales q before the dot
-  for (int idx = tid; idx < BQ * D4; idx += kThreads) {
-    const int r = idx / D4, c = (idx - r * D4) * 4, t = q0 + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t < Tq)
-      val = *reinterpret_cast<const float4*>(
-          q + ((static_cast<long long>(b) * Tq + t) * Hq + h) * D + c);
-    *reinterpret_cast<float4*>(Qs + r * L::QS + c) =
-        make_float4(val.x * scale, val.y * scale, val.z * scale,
-                    val.w * scale);
-  }
 
   // the KV tiles this block can see
   int kt_begin = 0;
   if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
   int last_key = Tk - 1;
-  if (causal) {
-    const int last_q = min(q0 + BQ - 1, Tq - 1);
-    last_key = min(last_key, last_q);
-  }
+  if (causal) last_key = min(last_key, min(q0 + BQ - 1, Tq - 1));
   const int kt_end = last_key < 0 ? -1 : last_key / BK;   // inclusive
 
-  float m[4], l[4], acc[4][4 * L::NJ];
+  const long long kv_row = static_cast<long long>(Hkv) * D;
+  const float* kbase = k + (static_cast<long long>(b) * Tk * Hkv + hk) * D;
+  const float* vbase = v + (static_cast<long long>(b) * Tk * Hkv + hk) * D;
+  auto load_tile = [&](int kt, int stage) {
+    float* ks = Ks + stage * L::kK;
+    float* vs = Vs + stage * L::kV;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * L::NJ; ++c) acc[i][c] = 0.f;
+    for (int i = 0; i < BK * D4 / kThreads; ++i) {
+      const int idx = tid + i * kThreads;
+      const int r = idx / D4, c = (idx - r * D4) * 4, key = kt * BK + r;
+      const bool ok = key < Tk;
+      const long long off = ok ? key * kv_row + c : 0;
+      cp_async16(ks + r * L::QS + c, kbase + off, ok);
+      cp_async16(vs + r * L::VS + c, vbase + off, ok);
+    }
+  };
+  if (kt_begin <= kt_end) load_tile(kt_begin, 0);
+  cp_async_commit();
+
+  // the query tile, scaled, as the TPU kernel scales q before the dot
+  for (int idx = tid; idx < BQ * D4; idx += kThreads) {
+    const int r = idx / D4, c = (idx - r * D4) * 4, tq = q0 + r;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (tq < Tq)
+      val = *reinterpret_cast<const float4*>(
+          q + ((static_cast<long long>(b) * Tq + tq) * Hq + h) * D + c);
+    *reinterpret_cast<float4*>(Qs + r * L::QS + c) =
+        make_float4(val.x * scale, val.y * scale, val.z * scale,
+                    val.w * scale);
   }
 
-  for (int kt = kt_begin; kt <= kt_end; ++kt) {
+  // this lane's rows: r0 (accumulator entries 0, 1) and r0 + 8 (2, 3)
+  const int wq0 = q0 + 16 * warp;
+  const int r0 = wq0 + g, r1 = r0 + 8;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  const float* qa = Qs + (16 * warp + g) * L::QS + 2 * t;
+  for (int kt = kt_begin, stage = 0; kt <= kt_end; ++kt, stage ^= 1) {
+    if (kt < kt_end) load_tile(kt + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait_one();                 // tile kt has landed
+    __syncthreads();
     const int k0 = kt * BK;
-    __syncthreads();                     // the last tile's P and V are read
-    for (int idx = tid; idx < BK * D4; idx += kThreads) {
-      const int r = idx / D4, c = (idx - r * D4) * 4, t = k0 + r;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (t < Tk) {
-        const long long off =
-            ((static_cast<long long>(b) * Tk + t) * Hkv + hk) * D + c;
-        kv = *reinterpret_cast<const float4*>(k + off);
-        vv = *reinterpret_cast<const float4*>(v + off);
-      }
-      *reinterpret_cast<float4*>(Ks + r * L::QS + c) = kv;
-      *reinterpret_cast<float4*>(Vs + r * D + c) = vv;
-    }
-    __syncthreads();
-
-    // S = (q * scale) K^T, a 4 x 4 patch per thread
-    float s[4][4];
+    // a tile masked for all 16 rows of this warp changes nothing (above)
+    const bool skip =
+        (causal && k0 > wq0 + 15) ||
+        (window > 0 && k0 + BK - 1 <= wq0 - window);
+    if (!skip) {
+      // S = (q * scale) K^T: 16 x BK, three passes a fragment
+      float s[NS][4], s2[NS][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[4];
+        for (int e = 0; e < 4; ++e) s[j][e] = s2[j][e] = 0.f;
+      const float* kb = Ks + stage * L::kK + g * L::QS + 2 * t;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(Qs + (ty * 4 + i) * L::QS + d);
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const float2 x0 = *reinterpret_cast<const float2*>(qa + 8 * kk);
+        const float2 x1 =
+            *reinterpret_cast<const float2*>(qa + 8 * L::QS + 8 * kk);
+        uint32_t ah[4], al[4];
+        split(x0.x, ah[0], al[0]);
+        split(x1.x, ah[1], al[1]);
+        split(x0.y, ah[2], al[2]);
+        split(x1.y, ah[3], al[3]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * L::QS + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        for (int j = 0; j < NS; ++j) {
+          const float2 y =
+              *reinterpret_cast<const float2*>(kb + 8 * j * L::QS + 8 * kk);
+          uint32_t bh0, bl0, bh1, bl1;
+          split(y.x, bh0, bl0);
+          split(y.y, bh1, bl1);
+          mma(s2[j], al, bh0, bh1);
+          mma(s2[j], ah, bl0, bl1);
+          mma(s[j], ah, bh0, bh1);
         }
-    }
-
-    // mask, then the online softmax of each of the thread's 4 rows
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        bool ok = kpos < Tk;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window > 0) ok = ok && kpos > qpos - window;
-        if (!ok) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
       }
-      const float m_new = fmaxf(m[i], row16_max(mx));
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        sum += s[i][j];
-      }
-      l[i] = l[i] * corr + row16_sum(sum);
-      m[i] = m_new;
+      for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int c = 0; c < 4 * L::NJ; ++c) acc[i][c] *= corr;
-    }
+        for (int e = 0; e < 4; ++e) s[j][e] += s2[j][e];
 
-    __syncthreads();                     // every thread has read K
+      // mask, then the online softmax of rows r0 and r1
+      const bool full = k0 + BK <= Tk && (!causal || k0 + BK - 1 <= wq0) &&
+                        (window <= 0 || k0 > wq0 + 15 - window);
+      if (!full) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) Ps[(ty * 4 + i) * L::PS + tx + 16 * j] = s[i][j];
-    __syncthreads();
-
-    // acc += P V, a 4 x (4 * NJ) patch per thread
-#pragma unroll 2
-    for (int c = 0; c < BK; c += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(Ps + (ty * 4 + i) * L::PS + c);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-#pragma unroll
-        for (int jj = 0; jj < L::NJ; ++jj) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              Vs + (c + cc) * D + jj * 64 + tx * 4);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = comp(pv[i], cc);
-            acc[i][jj * 4 + 0] = fmaf(p, vv.x, acc[i][jj * 4 + 0]);
-            acc[i][jj * 4 + 1] = fmaf(p, vv.y, acc[i][jj * 4 + 1]);
-            acc[i][jj * 4 + 2] = fmaf(p, vv.z, acc[i][jj * 4 + 2]);
-            acc[i][jj * 4 + 3] = fmaf(p, vv.w, acc[i][jj * 4 + 3]);
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+            const int qpos = e < 2 ? r0 : r1;
+            bool ok = kpos < Tk;
+            if (causal) ok = ok && kpos <= qpos;
+            if (window > 0) ok = ok && kpos > qpos - window;
+            if (!ok) s[j][e] = kNegInf;
           }
+      }
+      float mx0 = m[0], mx1 = m[1];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      const float c0 = expf(m[0] - mx0), c1 = expf(m[1] - mx1);
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        s[j][0] = expf(s[j][0] - mx0);
+        s[j][1] = expf(s[j][1] - mx0);
+        s[j][2] = expf(s[j][2] - mx1);
+        s[j][3] = expf(s[j][3] - mx1);
+        sum0 += s[j][0] + s[j][1];
+        sum1 += s[j][2] + s[j][3];
+      }
+      l[0] = l[0] * c0 + sum0;
+      l[1] = l[1] * c1 + sum1;
+      m[0] = mx0;
+      m[1] = mx1;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        o[n][0] *= c0;
+        o[n][1] *= c0;
+        o[n][2] *= c1;
+        o[n][3] *= c1;
+      }
+
+      // O += P V: the score accumulators are P's A fragment as they lie
+      const float* vb = Vs + stage * L::kV + 2 * t * L::VS + g;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        uint32_t ah[4], al[4];
+        split(s[j][0], ah[0], al[0]);
+        split(s[j][2], ah[1], al[1]);
+        split(s[j][1], ah[2], al[2]);
+        split(s[j][3], ah[3], al[3]);
+        const float* vj = vb + 8 * j * L::VS;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split(vj[8 * n], bh0, bl0);
+          split(vj[L::VS + 8 * n], bh1, bl1);
+          mma(o[n], al, bh0, bh1);
+          mma(o[n], ah, bl0, bl1);
+          mma(o[n], ah, bh0, bh1);
         }
       }
     }
+    __syncthreads();                     // the stage is read: refill it
   }
 
+  const float inv0 = 1.f / fmaxf(quad_sum(l[0]), 1e-30f);
+  const float inv1 = 1.f / fmaxf(quad_sum(l[1]), 1e-30f);
+  const long long row_stride = static_cast<long long>(Hq) * D;
+  float* o0 = out + ((static_cast<long long>(b) * Tq + r0) * Hq + h) * D +
+              2 * t;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty * 4 + i;
-    if (t >= Tq) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    float* orow = out + ((static_cast<long long>(b) * Tq + t) * Hq + h) * D;
-#pragma unroll
-    for (int jj = 0; jj < L::NJ; ++jj)
-      *reinterpret_cast<float4*>(orow + jj * 64 + tx * 4) = make_float4(
-          acc[i][jj * 4 + 0] * inv, acc[i][jj * 4 + 1] * inv,
-          acc[i][jj * 4 + 2] * inv, acc[i][jj * 4 + 3] * inv);
+  for (int n = 0; n < NT; ++n) {
+    if (r0 < Tq)
+      *reinterpret_cast<float2*>(o0 + 8 * n) =
+          make_float2(o[n][0] * inv0, o[n][1] * inv0);
+    if (r1 < Tq)
+      *reinterpret_cast<float2*>(o0 + 8 * row_stride + 8 * n) =
+          make_float2(o[n][2] * inv1, o[n][3] * inv1);
   }
 }
 
 template <int D>
+struct SmemAttr {};
+
+template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* out,
                    int B, int Tq, int Tk, int Hq, int Hkv, int causal,
-                   int window, float scale, cudaStream_t st) {
+                   int window, float scale, int device, cudaStream_t st) {
   auto kernel = flash_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(Tile<D>::bytes));
+  // the shared-memory attributes, once per device
+  cudaError_t err = rt::once_per_device<SmemAttr<D>>(device, [kernel] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(Tile<D>::bytes));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                static_cast<int>(
+                                    cudaSharedmemCarveoutMaxShared));
+  });
   if (err != cudaSuccess) return err;
   const long long n_bh = static_cast<long long>(B) * Hq;
   const int n_qt = (Tq + BQ - 1) / BQ;
@@ -292,14 +390,14 @@ extern "C" int rt_flash_attention(const float* q, const float* k,
     return cudaErrorInvalidValue;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
     return cudaErrorMisalignedAddress;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = rt::use_device(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64)
     return launch<64>(q, k, v, out, B, Tq, Tk, Hq, Hkv, causal, window,
-                      scale, st);
+                      scale, device, st);
   if (D == 128)
     return launch<128>(q, k, v, out, B, Tq, Tk, Hq, Hkv, causal, window,
-                       scale, st);
+                       scale, device, st);
   return cudaErrorInvalidValue;
 }

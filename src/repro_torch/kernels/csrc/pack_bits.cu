@@ -14,6 +14,7 @@
 // Arithmetic is uint32_t, so a straddling code never picks up sign bits.
 // Pad codes past `count` pack as 0.
 #include "bits.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -87,7 +88,7 @@ unsigned grid_for(long long n) {
 extern "C" int rt_pack_codes(const int* codes, long long count, int* words,
                              long long n_groups, int bits, int device,
                              void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = rt::use_device(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   uint32_t* out = reinterpret_cast<uint32_t*>(words);
@@ -108,7 +109,7 @@ extern "C" int rt_pack_codes(const int* codes, long long count, int* words,
 extern "C" int rt_unpack_codes(const int* words, long long n_groups,
                                int* codes, long long count, int bits,
                                int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = rt::use_device(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* in = reinterpret_cast<const uint32_t*>(words);

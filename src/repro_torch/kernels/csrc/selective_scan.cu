@@ -40,6 +40,8 @@
 //    order: the result differs from the plain version by rounding only.
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 #include <cstdint>
 
 namespace {
@@ -168,7 +170,7 @@ extern "C" int rt_selective_scan(const float* decay, const float* inp,
   if (B < 1 || T < 1 || di < 1 || N < 1 || N > kMaxN)
     return cudaErrorInvalidValue;
   if (B > 65535) return cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = rt::use_device(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (N) {

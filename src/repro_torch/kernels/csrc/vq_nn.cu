@@ -35,6 +35,8 @@
 //    hence the near-tie rule of the tests.
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 #include <cmath>
 
 namespace {
@@ -156,11 +158,10 @@ extern "C" int rt_vq_nearest(const float* z, const float* codebook, int* out,
                              long long N, int K, int M, int device,
                              void* stream) {
   if (N < 1 || K < 1 || M < 1 || M > 256) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = rt::use_device(device);
   if (err != cudaSuccess) return err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
+  const int sms = rt::sm_count(device);
+  if (sms < 1) return cudaErrorInvalidDevice;
   // the least split (a power of two, at most a warp) that gives two blocks
   // per SM, and no more lanes per row than the row has atoms to scan
   int split = 1;

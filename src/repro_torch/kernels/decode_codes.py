@@ -55,6 +55,6 @@ def decode_codes_cuda(words: torch.Tensor, table: torch.Tensor, *,
         _build.check(_build.library().rt_decode_codes(
             words.data_ptr(), phases.data_ptr(), table.data_ptr(),
             out.data_ptr(), count, n_tab, F, n_tab // n_slices, n_slices,
-            bits, words.device.index, _build.stream_of(words)),
+            bits, words.get_device(), _build.stream_of(words)),
             "decode_codes")
     return out

@@ -5,7 +5,8 @@ Port of ``repro.kernels.flash_attention``: softmax attention over
 softmax over KV tiles and masked scores at ``-1e30``. GQA is taken
 natively: query head ``h`` reads KV head ``h // (Hq // Hkv)``, where the
 reference's ``ops`` repeats k and v first. The kernel is
-``csrc/flash_attention.cu``; its plain version is
+``csrc/flash_attention.cu`` (its two products on TF32 tensor cores, in
+three passes that keep FP32 accuracy); its plain version is
 :func:`repro_torch.kernels.ref.flash_attention_ref`.
 """
 from __future__ import annotations
@@ -48,6 +49,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _build.check(_build.library().rt_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Tq,
             Tk, Hq, Hkv, D, int(bool(causal)), int(window),
-            1.0 / math.sqrt(D), q.device.index, _build.stream_of(q)),
+            1.0 / math.sqrt(D), q.get_device(), _build.stream_of(q)),
             "flash_attention")
     return out

@@ -91,7 +91,13 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     """(..., d) rows, (d,) scale -> ``x * rsqrt(mean(x^2) + eps) * scale``
     (float32 on the card)."""
     if _on_card(x):
-        return rmsnorm_cuda(x.contiguous(), scale.contiguous(), eps=eps)
+        # the kernel reads whole rows: float32 views are copied to
+        # contiguous ones (other dtypes are refused, not copied first)
+        if x.dtype == torch.float32 and not x.is_contiguous():
+            x = x.contiguous()
+        if scale.dtype == torch.float32 and not scale.is_contiguous():
+            scale = scale.contiguous()
+        return rmsnorm_cuda(x, scale, eps=eps)
     return ref.rmsnorm_ref(x, scale, eps)
 
 

@@ -52,7 +52,7 @@ def pack_codes_cuda(codes: torch.Tensor, *, bits: int) -> torch.Tensor:
     if n:
         _build.check(_build.library().rt_pack_codes(
             codes.data_ptr(), codes.numel(), words.data_ptr(), n, bits,
-            codes.device.index, _build.stream_of(codes)), "pack_codes")
+            codes.get_device(), _build.stream_of(codes)), "pack_codes")
     return words
 
 
@@ -72,5 +72,5 @@ def unpack_codes_cuda(words: torch.Tensor, *, bits: int,
     if count:
         _build.check(_build.library().rt_unpack_codes(
             words.data_ptr(), n, codes.data_ptr(), count, bits,
-            words.device.index, _build.stream_of(words)), "unpack_codes")
+            words.get_device(), _build.stream_of(words)), "unpack_codes")
     return codes

@@ -36,5 +36,5 @@ def vq_nearest_cuda(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     if N:
         _build.check(_build.library().rt_vq_nearest(
             z.data_ptr(), codebook.data_ptr(), out.data_ptr(), N, K, M,
-            z.device.index, _build.stream_of(z)), "vq_nearest")
+            z.get_device(), _build.stream_of(z)), "vq_nearest")
     return out

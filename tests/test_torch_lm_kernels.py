@@ -12,7 +12,16 @@ taken in another order); attention 2e-5 absolute and relative, as the
 reference holds its Pallas kernel to its oracle (the Pallas kernel scales
 q before the dot, the plain versions scale the scores after it, and the
 online softmax sums in another order).
+
+The CUDA flash kernel takes its two products on TF32 tensor cores in three
+passes (a*b ~ a_hi*b_hi + a_hi*b_lo + a_lo*b_hi; a_hi is a rounded to TF32
+as ``cvt.rna`` rounds, a_lo the remainder cut to TF32 toward zero). The
+last section models that arithmetic in plain PyTorch, on the kernel's own
+tiling, and holds it to the attention tolerance; one TF32 pass misses it,
+which is why the kernel splits.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -183,3 +192,154 @@ def test_plain_versions_do_not_count_launches():
     ops.rmsnorm(q, torch.ones(64))
     assert ops.LAUNCHES["flash_attention"] == 0
     assert ops.LAUNCHES["rmsnorm"] == 0
+
+
+# ------------------------------------------- the flash kernel's TF32 split
+
+TF32_TILE = 32                   # keys a KV tile of csrc/flash_attention.cu
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the TF32 value ``cvt.rna.tf32.f32`` gives, by integer bit
+    operations: the 23-bit mantissa rounded to 10 bits, to nearest with
+    ties away from zero (add half of the dropped field to the magnitude's
+    bit pattern, then clear the 13 low bits)."""
+    u = x.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = (u + 0x1000) & 0xFFFFE000
+    u = torch.where(u >= 2 ** 31, u - 2 ** 32, u)
+    return u.to(torch.int32).view(torch.float32)
+
+
+def tf32_rz(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 toward zero: the 13 low bits cleared, as the tensor
+    core reads an FP32 register."""
+    u = x.float().contiguous().view(torch.int32) & -0x2000
+    return u.view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """x ~ hi + lo with both parts TF32, as the kernel splits an operand:
+    hi rounded to nearest, the exact remainder x - hi cut toward zero."""
+    hi = tf32_rna(x)
+    return hi, tf32_rz(x - hi)
+
+
+def mm_tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in three TF32 passes with FP32 sums: the two small passes
+    first, then the large one (each product of two TF32 values is exact in
+    float32)."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def mm_tf32x1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in one TF32 pass."""
+    return tf32_rna(a) @ tf32_rna(b)
+
+
+def tiled_attention(q, k, v, mm, *, causal, window):
+    """The flash kernel's algorithm on the CPU: q scaled before the dot, an
+    online softmax over TF32_TILE-key tiles with the finite -1e30 mask, both
+    products through ``mm``, the output acc / max(l, 1e-30). GQA by head
+    index. (B, Tq, Hq, D), (B, Tk, Hkv, D) -> (B, Tq, Hq, D)."""
+    B, Tq, Hq, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    heads = torch.arange(Hq) // (Hq // Hkv)
+    qs = (q * (1.0 / math.sqrt(D))).permute(0, 2, 1, 3)
+    kh = k.index_select(2, heads).permute(0, 2, 1, 3)
+    vh = v.index_select(2, heads).permute(0, 2, 1, 3)
+    m = torch.full((B, Hq, Tq, 1), -1e30)
+    l = torch.zeros((B, Hq, Tq, 1))
+    acc = torch.zeros((B, Hq, Tq, D))
+    qpos = torch.arange(Tq)[:, None]
+    for k0 in range(0, Tk, TF32_TILE):
+        k1 = min(k0 + TF32_TILE, Tk)
+        kpos = torch.arange(k0, k1)[None, :]
+        s = mm(qs, kh[:, :, k0:k1].transpose(-1, -2))
+        ok = torch.ones((Tq, k1 - k0), dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window:
+            ok &= kpos > qpos - window
+        s = torch.where(ok, s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + mm(p, vh[:, :, k0:k1])
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).permute(0, 2, 1, 3)
+
+
+def _rna_numpy(x: np.ndarray) -> np.ndarray:
+    """TF32 rounding by another route: 11 significant bits, ties away."""
+    mant, exp = np.frexp(x.astype(np.float64))
+    r = np.sign(mant) * np.floor(np.abs(mant) * 2.0 ** 11 + 0.5)
+    return np.ldexp(r, exp - 11).astype(np.float32)
+
+
+def test_tf32_rna_bits():
+    """Ties go away from zero, a carry moves into the exponent, the low 13
+    bits are cleared, and random values round as an independent float64
+    rounding to 11 significant bits does."""
+    bits = np.array([0x3F800000, 0x3F801000, 0x3F800FFF, 0x3F801001,
+                     0xBF801000, 0x3FFFF000, 0x3F803000, 0x00000000,
+                     0x80000000], dtype=np.uint32)
+    want = np.array([0x3F800000, 0x3F802000, 0x3F800000, 0x3F802000,
+                     0xBF802000, 0x40000000, 0x3F804000, 0x00000000,
+                     0x80000000], dtype=np.uint32)
+    got = tf32_rna(torch.from_numpy(bits.view(np.float32).copy()))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal(100_000)
+         * 10.0 ** rng.uniform(-6, 6, 100_000)).astype(np.float32)
+    got = tf32_rna(torch.from_numpy(x)).numpy()
+    assert not (got.view(np.uint32) & 0x1FFF).any()
+    np.testing.assert_array_equal(got, _rna_numpy(x))
+    hi, lo = split_tf32(torch.from_numpy(x))
+    assert not (lo.numpy().view(np.uint32) & 0x1FFF).any()
+    err = np.abs((hi.double() + lo.double()).numpy() - x)
+    assert (err <= 2.0 ** -21 * np.abs(x)).all()
+    # the GPU's canonical NaN rounds up into the sign bit (hi is -0), and
+    # the remainder, cut toward zero, carries the NaN on
+    nan = torch.from_numpy(np.array([0x7FFFFFFF], np.uint32).view(np.float32))
+    hi, lo = split_tf32(nan)
+    assert hi.item() == 0.0 and math.isnan(lo.item())
+
+
+@pytest.mark.parametrize("b,t,hq,hkv,d,causal,window", [
+    (1, 200, 2, 2, 64, True, 0),             # ragged T, causal
+    (1, 256, 2, 2, 128, True, 0),
+    (1, 160, 2, 2, 128, True, 48),           # window across tiles
+    (2, 96, 4, 2, 64, True, 0),              # GQA 2:1
+    (1, 130, 4, 1, 128, False, 0),           # GQA 4:1, not causal
+    (1, 77, 2, 2, 64, False, 20)])           # window, not causal
+def test_tf32x3_attention_matches_pallas_and_ref(b, t, hq, hkv, d, causal,
+                                                 window):
+    q, k, v = _qkv(t * d + hq + window, b, t, hq, hkv, d)
+    got = tiled_attention(*_t(q, k, v), mm_tf32x3, causal=causal,
+                          window=window).numpy()
+    rep = hq // hkv
+    jq, jk, jv = (jnp.asarray(q), jnp.repeat(jnp.asarray(k), rep, axis=2),
+                  jnp.repeat(jnp.asarray(v), rep, axis=2))
+    pallas = flash_attention_pallas(jq, jk, jv, causal=causal, window=window,
+                                    interpret=True)
+    plain = ref.flash_attention_ref(*_t(q, k, v), causal=causal,
+                                    window=window)
+    for want in (np.asarray(pallas), plain.numpy()):
+        np.testing.assert_allclose(got, want, atol=ATTN_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("t,d", [(256, 128), (512, 64)])
+def test_one_tf32_pass_misses_the_tolerance(t, d):
+    """Why the kernel splits: one TF32 pass lands well outside 2e-5 of the
+    plain version on N(0, 1) inputs, three passes well inside it."""
+    q, k, v = _t(*_qkv(t + d, 1, t, 2, 2, d))
+    plain = ref.flash_attention_ref(q, k, v, causal=True)
+    one = (tiled_attention(q, k, v, mm_tf32x1, causal=True, window=0)
+           - plain).abs().max().item()
+    three = (tiled_attention(q, k, v, mm_tf32x3, causal=True, window=0)
+             - plain).abs().max().item()
+    assert one > 10 * ATTN_TOL, one
+    assert three < ATTN_TOL / 4, three
