@@ -70,9 +70,11 @@ def params_to_numpy(params) -> Dict[str, np.ndarray]:
 
 
 def params_from_numpy(flat: Dict[str, np.ndarray], cfg: DVQAEConfig, *,
-                      device="cpu") -> dict:
+                      device=None) -> dict:
     """Reference path-keyed arrays -> ``{"encoder": nn.Module, "decoder":
-    nn.Module, "codebook": (K, M) tensor}`` on ``device``."""
+    nn.Module, "codebook": (K, M) tensor}`` on ``device`` (cuda unless
+    ``device="cpu"``)."""
+    device = resolve_device(device)
     params = {"encoder": make_encoder(cfg), "decoder": make_decoder(cfg)}
     for net in _NETS:
         state = {}
@@ -93,8 +95,10 @@ def params_from_numpy(flat: Dict[str, np.ndarray], cfg: DVQAEConfig, *,
     return params
 
 
-def load_npz(path: str, cfg: DVQAEConfig, *, device="cpu") -> dict:
-    """``params_from_numpy`` of a reference ``save_pytree`` file."""
+def load_npz(path: str, cfg: DVQAEConfig, *, device=None) -> dict:
+    """``params_from_numpy`` of a reference ``save_pytree`` file, on
+    ``device`` (cuda unless ``device="cpu"``)."""
+    device = resolve_device(device)
     with np.load(path) as data:
         return params_from_numpy(dict(data), cfg, device=device)
 
@@ -120,8 +124,10 @@ def init_numpy_params(cfg: DVQAEConfig, seed: int) -> Dict[str, np.ndarray]:
 
 
 def probe_from_numpy(flat: Dict[str, np.ndarray], *,
-                     device="cpu") -> LinearProbe:
-    """Reference linear-probe arrays (w1, b1, w2, b2, w3, b3) -> module."""
+                     device=None) -> LinearProbe:
+    """Reference linear-probe arrays (w1, b1, w2, b2, w3, b3) -> module on
+    ``device`` (cuda unless ``device="cpu"``)."""
+    device = resolve_device(device)
     w1, w3 = flat["w1"], flat["w3"]
     head = LinearProbe(w1.shape[0], w3.shape[1], hidden=w1.shape[1])
     head.load_state_dict({k: torch.from_numpy(np.asarray(flat[k], np.float32))

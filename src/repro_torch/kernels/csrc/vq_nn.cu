@@ -8,31 +8,45 @@
 //
 // Bound on the H100: FP32 operations. A training step's search (N = 2,048,
 // K = 256, M = 64) is 2*N*K*M = 67 MFLOP, 1.0 us at the 67 TFLOP/s FP32
-// peak, against 0.6 MB of inputs and outputs, 0.2 us of memory. The
-// scores must reproduce the reference's FP32 formula, so they run on the
-// FP32 FMA pipes, not on tensor cores in TF32 (which would flip codes).
+// peak, against 0.6 MB of inputs and outputs, 0.2 us of memory; a
+// full-width client batch (N = 65,536) 2.1 GFLOP, 32 us. The scores must
+// reproduce the reference's FP32 formula, so they run on the FP32 FMA
+// pipes, not on tensor cores in TF32 (which would flip codes).
 //
-// Design, and what differs from the TPU kernel:
-//  * The TPU grid walks K blocks in order and carries the running best in
-//    VMEM scratch; atoms past K are padded with a 1e30 norm to fill its
-//    fixed block shapes. Here each block stages the codebook in shared
-//    memory in chunks of CK atoms and loops to K itself, so nothing is
-//    padded.
-//  * `split` threads share one row, each scanning every split-th atom of
-//    a chunk (the row sits in each one's registers, padded with zeros to
-//    MT, a compile-time width). The split is chosen per launch so that a
-//    small N still fills the SMs: a training step's 2,048 rows would
-//    otherwise be 8 blocks on 132 SMs. The `split` lanes of a row are
-//    consecutive lanes of one warp and combine their bests by shuffles.
-//  * Staged atom rows are padded to MT + 4 floats, so the `split` atoms
-//    that one warp reads at once fall in different shared-memory banks.
-//  * Ties keep the lower index: each lane scans its atoms in index order
-//    with a strict `<`, and the combine takes the lower index at equal
-//    scores -- the rule of the TPU kernel's carry.
-//  * The dot product runs as two interleaved FMA chains, and
-//    ||e||^2 per staged atom is one warp reduction, both as in
-//    encode_codes.cu. Sums run in another order than the reference's,
-//    hence the near-tie rule of the tests.
+// Design: the (N, K) score matrix is tiled as an FP32 SGEMM is.
+//  * A block of 256 threads is TY rows of TX threads. Thread (ty, tx)
+//    computes a TM x TN micro-tile of scores in registers: rows ty + TY i,
+//    atoms tx + TX j. Each 16-byte shared-memory load of an atom's 4 values
+//    feeds 4*TM FMAs and each of a row's feeds 4*TN. With these strides a
+//    warp's 16-byte loads are free of bank conflicts in rows padded to
+//    MT + 4 floats (MT, a compile-time width >= M, zero-filled past M).
+//  * Tiles land by cp.async, all of a tile's copies in flight at once: 16
+//    bytes where rows start 16-byte aligned (M % 4 == 0), 4 bytes else.
+//  * Where the codebook fits shared memory (M <= 64; at M = 64, K <= 512
+//    in 128-row tiles and K <= 256 in 16-row tiles), it stays resident:
+//    each block stages it and computes its ||e||^2 once,
+//    then walks row tiles, the next z tile copied while this one is scored.
+//    Many rows (a full-width client batch): 128-row tiles, 8 x 8 a thread,
+//    one block an SM (254 registers). Few rows (a training step's 2,048):
+//    16-row tiles, 4 x 4 a thread with 64 threads across 256 atoms, so
+//    that 128 blocks fill the SMs and nothing is combined across blocks.
+//  * Each thread scans its atoms in index order with a strict `<`; the
+//    threads of a row combine by shuffles (and through shared memory where
+//    they span two warps): the lower score, or at equal scores the lower
+//    index -- the rule of the TPU kernel's carry. Duplicated atoms score
+//    bit-identically (one FMA order for every (row, atom) pair), so the
+//    rule decides their ties.
+//  * Otherwise 64 x 64 tiles (4 x 4 a thread) stream the codebook through
+//    two buffers, one block a row tile, the next atom tile copied while
+//    this one is scored. No caller sends such inputs (every DVQ-AE config
+//    has M <= 64 and K <= 256), so this path is kept simple and right, not
+//    tuned: few rows leave SMs idle. No global scratch, atomics or second
+//    pass.
+//  * What bounds it in practice is shared-memory issue, not the FMA pipes:
+//    the tilings tried ran faster the more FMAs each 16-byte load fed (4 x 4
+//    < 8 x 4 < 8 x 8 a thread at 65,536 rows). Unrolling the contraction
+//    loop in full spilled and ran several times slower. Sums run in another
+//    order than the reference's, hence the near-tie rule of the tests.
 #include <cuda_runtime.h>
 
 #include "launch.cuh"
@@ -41,114 +55,399 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTableBytes = 96 * 1024;   // shared memory for atom chunks
-constexpr int kMaxSmem = 227 * 1024;
+constexpr int kThreads = 256;            // TY rows x TX threads
+constexpr size_t kMaxSmem = 227 * 1024;
 
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s),
+               "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(Pending) : "memory");
+}
+
+// Rows [r0, r0 + rows) of a row-major (limit, M) matrix into shared rows of
+// MT + 4 floats; columns past M and rows past `limit` are zero-filled (a
+// copy of 0 bytes, from a valid address).
 template <int MT>
-__global__ void vq_nearest_kernel(const float* __restrict__ z,
-                                  const float* __restrict__ codebook,
-                                  int* __restrict__ out, long long N, int K,
-                                  int M, int split, int CK) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int RS = MT + 4;               // padded staged-row stride
-  float* es = smem;                        // (CK, RS)
-  float* e2s = es + CK * RS;               // (CK,)
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int sub = tid % split;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * (blockDim.x / split) + tid / split;
-  const bool valid = row < N;
-
-  float zr[MT];
-  {
-    const float* zrow = z + (valid ? row : 0) * M;
-#pragma unroll
-    for (int k = 0; k < MT; ++k) zr[k] = (valid && k < M) ? zrow[k] : 0.f;
+__device__ __forceinline__ void stage(float* dst,
+                                      const float* __restrict__ src,
+                                      long long r0, int rows,
+                                      long long limit, int M, bool vec) {
+  constexpr int RS = MT + 4;
+  if (vec) {
+    constexpr int Q = MT / 4;
+    for (int i = threadIdx.x; i < rows * Q; i += kThreads) {
+      const int r = i / Q, q = i - r * Q;
+      const bool ok = r0 + r < limit && 4 * q < M;
+      cp_async16(dst + r * RS + 4 * q, ok ? src + (r0 + r) * M + 4 * q : src,
+                 ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * MT; i += kThreads) {
+      const int r = i / MT, k = i - r * MT;
+      const bool ok = r0 + r < limit && k < M;
+      cp_async4(dst + r * RS + k, ok ? src + (r0 + r) * M + k : src, ok);
+    }
   }
+}
 
-  float best = INFINITY;
-  int code = 0;
-  for (int k0 = 0; k0 < K; k0 += CK) {
-    const int ck = min(CK, K - k0);
-    __syncthreads();
-    for (int idx = tid; idx < CK * MT; idx += blockDim.x) {
-      const int i = idx / MT, k = idx - i * MT;
-      es[i * RS + k] = (i < ck && k < M)
-                           ? codebook[(static_cast<long long>(k0) + i) * M + k]
-                           : 0.f;
+// ||e||^2 of `rows` staged atoms into e2, 256 / TPA atoms at a time with
+// TPA threads an atom.
+template <int MT, int TPA>
+__device__ __forceinline__ void atom_norms(const float* e, float* e2,
+                                           int rows) {
+  constexpr int RS = MT + 4;
+  const int part = threadIdx.x % TPA;
+  for (int a = threadIdx.x / TPA; a < rows; a += kThreads / TPA) {
+    const float4* ea = reinterpret_cast<const float4*>(e + a * RS);
+    float acc = 0.f;
+    for (int q = part; q < MT / 4; q += TPA) {
+      const float4 v = ea[q];
+      acc = fmaf(v.x, v.x, acc);
+      acc = fmaf(v.y, v.y, acc);
+      acc = fmaf(v.z, v.z, acc);
+      acc = fmaf(v.w, v.w, acc);
     }
-    __syncthreads();
-    for (int i = warp; i < ck; i += n_warps) {
-      float acc = 0.f;
-      for (int k = lane; k < MT; k += 32)
-        acc = fmaf(es[i * RS + k], es[i * RS + k], acc);
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, o);
-      if (lane == 0) e2s[i] = acc;
+    for (int o = TPA / 2; o > 0; o >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (part == 0) e2[a] = acc;
+  }
+}
+
+// This thread's TM x TN scores against one staged tile of BK = TX*TN atoms
+// (`e`, norms `e2`, the first atom's index `atom0`), folded into the rows'
+// bests in index order with a strict `<`. The block is TY = 256 / TX rows
+// of TX threads: thread (ty, tx) scores rows ty + TY i and atoms tx + TX j.
+template <int MT, int TM, int TN, int TX>
+__device__ __forceinline__ void score_tile(const float* zs, const float* e,
+                                           const float* e2, int atom0, int K,
+                                           float (&best)[TM],
+                                           int (&code)[TM]) {
+  constexpr int RS = MT + 4, TY = kThreads / TX;
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  // the TN atoms' 4 values stay in registers while the TM rows stream by
+#pragma unroll 4
+  for (int q = 0; q < MT / 4; ++q) {
+    float4 ev[TN];
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+      ev[j] = reinterpret_cast<const float4*>(e + (tx + TX * j) * RS)[q];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float4 zr =
+          reinterpret_cast<const float4*>(zs + (ty + TY * i) * RS)[q];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        acc[i][j] = fmaf(zr.x, ev[j].x, acc[i][j]);
+        acc[i][j] = fmaf(zr.y, ev[j].y, acc[i][j]);
+        acc[i][j] = fmaf(zr.z, ev[j].z, acc[i][j]);
+        acc[i][j] = fmaf(zr.w, ev[j].w, acc[i][j]);
+      }
     }
-    __syncthreads();
-    for (int i = sub; i < ck; i += split) {
-      const float4* e4 = reinterpret_cast<const float4*>(es + i * RS);
-      float c0 = 0.f, c1 = 0.f;
+  }
 #pragma unroll
-      for (int q = 0; q < MT / 4; q += 2) {
-        const float4 e = e4[q];
-        c0 = fmaf(zr[4 * q], e.x, c0);
-        c0 = fmaf(zr[4 * q + 1], e.y, c0);
-        c0 = fmaf(zr[4 * q + 2], e.z, c0);
-        c0 = fmaf(zr[4 * q + 3], e.w, c0);
-        if (q + 1 < MT / 4) {
-          const float4 f = e4[q + 1];
-          c1 = fmaf(zr[4 * q + 4], f.x, c1);
-          c1 = fmaf(zr[4 * q + 5], f.y, c1);
-          c1 = fmaf(zr[4 * q + 6], f.z, c1);
-          c1 = fmaf(zr[4 * q + 7], f.w, c1);
+  for (int j = 0; j < TN; ++j) {
+    const int atom = atom0 + tx + TX * j;
+    if (atom < K) {
+      const float n2 = e2[tx + TX * j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float s = n2 - 2.f * acc[i][j];
+        if (s < best[i]) {
+          best[i] = s;
+          code[i] = atom;
         }
       }
-      const float score = e2s[i] - 2.f * (c0 + c1);
-      if (score < best) {
-        best = score;
-        code = k0 + i;
+    }
+  }
+}
+
+// (b, c) takes (ob, oc) when it is lower, or equal with a lower index.
+__device__ __forceinline__ void take_lower(float& b, int& c, float ob,
+                                           int oc) {
+  if (ob < b || (ob == b && oc < c)) {
+    b = ob;
+    c = oc;
+  }
+}
+
+// The threads of a row that share a warp (consecutive lanes, at most 32)
+// combine their bests.
+template <int TM, int TX>
+__device__ __forceinline__ void combine_lanes(float (&best)[TM],
+                                             int (&code)[TM]) {
+  constexpr int LANES = TX < 32 ? TX : 32;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int o = LANES / 2; o > 0; o >>= 1)
+      take_lower(best[i], code[i],
+                 __shfl_xor_sync(0xffffffffu, best[i], o),
+                 __shfl_xor_sync(0xffffffffu, code[i], o));
+  }
+}
+
+template <int TM>
+__device__ __forceinline__ void init_best(float (&best)[TM],
+                                          int (&code)[TM]) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    best[i] = INFINITY;
+    code[i] = 0;
+  }
+}
+
+template <int MT, int TM, int TN, int TX = 16>
+struct Tile {
+  static constexpr int BN = kThreads / TX * TM, BK = TX * TN, RS = MT + 4;
+  // the streaming kernel: a z tile, two atom tiles, two tiles of norms
+  static constexpr size_t stream_bytes =
+      (static_cast<size_t>(BN) * RS + 2 * BK * RS + 2 * BK) * sizeof(float);
+  // the resident kernel: two z tiles, the codebook of `k_pad` atoms, norms
+  static constexpr size_t resident_bytes(long long k_pad) {
+    return (2 * static_cast<size_t>(BN) * RS +
+            static_cast<size_t>(k_pad) * (RS + 1)) * sizeof(float);
+  }
+  // resident blocks an SM: one for 8 x 8 micro-tiles (their registers),
+  // two else; each may take its share of the SM's 228 KB of shared memory,
+  // less 3 KB (the block's reserved 1 KB and its static arrays)
+  static constexpr int bps = TM * TN >= 64 ? 1 : 2;
+  static constexpr size_t resident_budget = (228 / bps - 3) * 1024;
+};
+
+// The whole codebook resident: each block stages it and its norms once,
+// then walks row tiles (persistent where there are more row tiles than
+// blocks), the next z tile copied while this one is scored. A row's TX
+// threads combine by shuffles, and through shared memory where they span
+// warps.
+template <int MT, int TM, int TN, int TX>
+__global__ void __launch_bounds__(kThreads, Tile<MT, TM, TN, TX>::bps)
+    vq_resident_kernel(const float* __restrict__ z,
+                       const float* __restrict__ codebook,
+                       int* __restrict__ out, long long N, int K, int M,
+                       long long row_tiles, bool vec) {
+  using L = Tile<MT, TM, TN, TX>;
+  constexpr int BN = L::BN, BK = L::BK, RS = L::RS, TY = kThreads / TX;
+  constexpr int PARTS = TX > 32 ? TX / 32 : 1;   // warps a row spans
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float part_best[PARTS][BN];
+  __shared__ int part_code[PARTS][BN];
+  const int k_pad = (K + BK - 1) / BK * BK;
+  float* es = smem;                       // (k_pad, RS)
+  float* e2s = es + k_pad * RS;           // (k_pad,)
+  float* z2 = e2s + k_pad;                // 2 x (BN, RS)
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+
+  stage<MT>(es, codebook, 0, k_pad, K, M, vec);
+  stage<MT>(z2, z, static_cast<long long>(blockIdx.x) * BN, BN, N, M, vec);
+  cp_async_commit();
+  for (long long rt = blockIdx.x, n = 0; rt < row_tiles;
+       rt += gridDim.x, ++n) {
+    const long long row0 = rt * BN;
+    const float* zs = z2 + (n & 1) * BN * RS;
+    if (rt + gridDim.x < row_tiles) {
+      stage<MT>(z2 + ((n + 1) & 1) * BN * RS, z, row0 + gridDim.x * BN, BN,
+                N, M, vec);
+      cp_async_commit();
+      cp_async_wait<1>();                 // this tile (and the codebook)
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (rt == blockIdx.x) {
+      atom_norms<MT, 1>(es, e2s, k_pad);
+      __syncthreads();
+    }
+    float best[TM];
+    int code[TM];
+    init_best(best, code);
+    for (int a0 = 0; a0 < K; a0 += BK)
+      score_tile<MT, TM, TN, TX>(zs, es + a0 * RS, e2s + a0, a0, K, best,
+                                 code);
+    combine_lanes<TM, TX>(best, code);
+    if (PARTS == 1) {
+      if (tx == 0) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const long long row = row0 + ty + TY * i;
+          if (row < N) out[row] = code[i];
+        }
+      }
+    } else {
+      if (tx % 32 == 0) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          part_best[tx / 32][ty + TY * i] = best[i];
+          part_code[tx / 32][ty + TY * i] = code[i];
+        }
+      }
+      __syncthreads();
+      for (int r = threadIdx.x; r < BN && row0 + r < N; r += kThreads) {
+        float b = part_best[0][r];
+        int c = part_code[0][r];
+#pragma unroll
+        for (int p = 1; p < PARTS; ++p)
+          take_lower(b, c, part_best[p][r], part_code[p][r]);
+        out[row0 + r] = c;
       }
     }
+    __syncthreads();                      // before this z tile is restaged
   }
+}
 
-  // combine the split lanes of a row: the lower score, or at equal scores
-  // the lower index
-  for (int o = split >> 1; o > 0; o >>= 1) {
-    const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-    const int oc = __shfl_xor_sync(0xffffffffu, code, o);
-    if (ob < best || (ob == best && oc < code)) {
-      best = ob;
-      code = oc;
+// A codebook that does not fit shared memory, or atoms wider than 64: one
+// row tile a block, the atom tiles streamed through two buffers.
+template <int MT, int TM, int TN>
+__global__ void __launch_bounds__(kThreads)
+    vq_stream_kernel(const float* __restrict__ z,
+                     const float* __restrict__ codebook,
+                     int* __restrict__ out, long long N, int K, int M,
+                     bool vec) {
+  using L = Tile<MT, TM, TN>;
+  constexpr int BN = L::BN, BK = L::BK, RS = L::RS;
+  extern __shared__ __align__(16) float smem[];
+  float* zs = smem;                       // (BN, RS)
+  float* es = zs + BN * RS;               // 2 x (BK, RS)
+  float* e2s = es + 2 * BK * RS;          // 2 x BK
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const long long row0 = static_cast<long long>(blockIdx.x) * BN;
+  const int n_tiles = (K + BK - 1) / BK;
+
+  stage<MT>(zs, z, row0, BN, N, M, vec);
+  stage<MT>(es, codebook, 0, BK, K, M, vec);
+  cp_async_commit();
+
+  float best[TM];
+  int code[TM];
+  init_best(best, code);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    const float* e = es + buf * BK * RS;
+    float* e2 = e2s + buf * BK;
+    if (t + 1 < n_tiles) {
+      stage<MT>(es + (buf ^ 1) * BK * RS, codebook,
+                static_cast<long long>(t + 1) * BK, BK, K, M, vec);
+      cp_async_commit();
+      cp_async_wait<1>();                 // tile t (and z) have landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    atom_norms<MT, kThreads / BK>(e, e2, BK);
+    __syncthreads();
+    score_tile<MT, TM, TN, 16>(zs, e, e2, t * BK, K, best, code);
+    __syncthreads();                      // before buffer `buf` is restaged
+  }
+  combine_lanes<TM, 16>(best, code);
+  if (tx == 0) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const long long row = row0 + ty + 16 * i;
+      if (row < N) out[row] = code[i];
     }
   }
-  if (valid && sub == 0) out[row] = code;
+}
+
+template <auto Kernel>
+struct SmemAttr {};
+
+// Raise a kernel's dynamic shared-memory limit to the most it takes,
+// once per device.
+template <auto Kernel>
+cudaError_t allow_smem(int device, size_t bytes) {
+  return rt::once_per_device<SmemAttr<Kernel>>(device, [bytes] {
+    return cudaFuncSetAttribute(Kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(bytes));
+  });
+}
+
+bool aligned16(const float* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
+}
+
+template <int MT, int TM, int TN, int TX>
+cudaError_t launch_resident(const float* z, const float* codebook, int* out,
+                            long long N, int K, int M, int device, int sms,
+                            size_t smem, cudaStream_t st) {
+  using L = Tile<MT, TM, TN, TX>;
+  constexpr auto kernel = vq_resident_kernel<MT, TM, TN, TX>;
+  cudaError_t err = allow_smem<kernel>(device, L::resident_budget);
+  if (err != cudaSuccess) return err;
+  const long long row_tiles = (N + L::BN - 1) / L::BN;
+  const long long most = static_cast<long long>(L::bps) * sms;
+  const long long blocks = row_tiles < most ? row_tiles : most;
+  const bool vec = M % 4 == 0 && aligned16(z) && aligned16(codebook);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
+      z, codebook, out, N, K, M, row_tiles, vec);
+  return cudaGetLastError();
 }
 
 template <int MT>
-cudaError_t launch(long long N, int K, int M, int split, cudaStream_t st,
-                   const float* z, const float* codebook, int* out) {
-  const int RS = MT + 4;
-  int CK = kTableBytes / ((RS + 1) * 4);
-  CK = CK < K ? CK : K;
-  const size_t smem = (static_cast<size_t>(CK) * RS + CK) * 4;
-  if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
-  auto kernel = vq_nearest_kernel<MT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+cudaError_t launch_stream(const float* z, const float* codebook, int* out,
+                          long long N, int K, int M, int device,
+                          cudaStream_t st) {
+  using L = Tile<MT, 4, 4>;
+  static_assert(L::stream_bytes <= kMaxSmem, "tile exceeds shared memory");
+  constexpr auto kernel = vq_stream_kernel<MT, 4, 4>;
+  cudaError_t err = allow_smem<kernel>(device, L::stream_bytes);
   if (err != cudaSuccess) return err;
-  const long long rows_per_block = kThreads / split;
-  const long long blocks = (N + rows_per_block - 1) / rows_per_block;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
-      z, codebook, out, N, K, M, split, CK);
+  const long long row_tiles = (N + L::BN - 1) / L::BN;
+  if (row_tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const bool vec = M % 4 == 0 && aligned16(z) && aligned16(codebook);
+  kernel<<<static_cast<unsigned>(row_tiles), kThreads, L::stream_bytes, st>>>(
+      z, codebook, out, N, K, M, vec);
   return cudaGetLastError();
+}
+
+// The codebook resident where it fits its blocks' shared memory (M <= 64):
+// in 128-row tiles (8 x 8 a thread, atoms in sub-tiles of 128, one block
+// an SM; K <= 512 at M = 64) where the rows fill the SMs twice over, else
+// in 16-row tiles (4 x 4 a thread, 64 threads across 256 atoms, two blocks
+// an SM; K <= 256 at M = 64), so that a training step's 2,048 rows are 128
+// blocks that combine nothing across blocks. Streamed 64 x 64 tiles else.
+template <int MT>
+cudaError_t dispatch(const float* z, const float* codebook, int* out,
+                     long long N, int K, int M, int device, int sms,
+                     cudaStream_t st) {
+  if constexpr (MT <= 64) {
+    using W = Tile<MT, 8, 8, 16>;
+    using F = Tile<MT, 4, 4, 64>;
+    const size_t wide = W::resident_bytes((K + W::BK - 1LL) / W::BK * W::BK);
+    const size_t few = F::resident_bytes((K + F::BK - 1LL) / F::BK * F::BK);
+    if ((N + W::BN - 1) / W::BN >= 2LL * sms && wide <= W::resident_budget)
+      return launch_resident<MT, 8, 8, 16>(z, codebook, out, N, K, M,
+                                           device, sms, wide, st);
+    if (few <= F::resident_budget)
+      return launch_resident<MT, 4, 4, 64>(z, codebook, out, N, K, M,
+                                           device, sms, few, st);
+  }
+  return launch_stream<MT>(z, codebook, out, N, K, M, device, st);
 }
 
 }  // namespace
@@ -162,16 +461,10 @@ extern "C" int rt_vq_nearest(const float* z, const float* codebook, int* out,
   if (err != cudaSuccess) return err;
   const int sms = rt::sm_count(device);
   if (sms < 1) return cudaErrorInvalidDevice;
-  // the least split (a power of two, at most a warp) that gives two blocks
-  // per SM, and no more lanes per row than the row has atoms to scan
-  int split = 1;
-  while (split < 32 && split < K &&
-         N * split < 2LL * sms * kThreads)
-    split *= 2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RT_VQ(W_)                                                     \
-  if (M <= W_) return launch<W_>(N, K, M, split, st, z, codebook, out);
-  RT_VQ(4) RT_VQ(8) RT_VQ(16) RT_VQ(32) RT_VQ(64) RT_VQ(128) RT_VQ(256)
+#define RT_VQ(W_)                                                         \
+  if (M <= W_) return dispatch<W_>(z, codebook, out, N, K, M, device, sms, st);
+  RT_VQ(16) RT_VQ(32) RT_VQ(64) RT_VQ(128) RT_VQ(256)
 #undef RT_VQ
   return cudaErrorInvalidValue;
 }

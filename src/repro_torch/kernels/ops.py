@@ -8,6 +8,19 @@ kernel (or raises), a CPU tensor runs the plain version in
 
 :data:`LAUNCHES` counts the CUDA launches of each kernel; the plain
 versions never touch it.
+
+Gradients. The CUDA kernels write their outputs through ``ctypes``, so
+autograd cannot see into them. ``rmsnorm``, ``flash_attention`` and
+``selective_scan`` therefore go through a ``torch.autograd.Function``
+whenever a graph is being built (grad mode on and an input that requires
+grad): its forward launches the kernel, its backward recomputes the plain
+version on the saved inputs and differentiates that. This is the gradient
+the reference takes (XLA's autodiff of plain ``jnp``; it has no backward
+kernel). The recompute materialises what the kernels keep on chip: the
+(B, H, Tq, Tk) scores of attention and every state of the scan. Under
+``torch.no_grad()`` (serving) the kernels are called directly and no graph
+is built. A CPU tensor runs the plain version, which autograd differentiates
+itself.
 """
 from __future__ import annotations
 
@@ -31,6 +44,71 @@ def _on_card(t: torch.Tensor) -> bool:
         return False
     raise ValueError(f"the port's kernels run on cuda or cpu tensors, got "
                      f"{t.device}")
+
+
+def _builds_graph(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _recompute_grads(ctx, plain, grads):
+    """Gradients of ``plain(*saved inputs)`` for the inputs that need one,
+    ``grads`` being those of its outputs (None for an input that does
+    not)."""
+    inputs = [t.detach().requires_grad_(need) for t, need in
+              zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    wanted = [t for t in inputs if t.requires_grad]
+    with torch.enable_grad():
+        outs = plain(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    found = iter(torch.autograd.grad(outs, wanted, grads, allow_unused=True))
+    return tuple(next(found) if t.requires_grad else None for t in inputs)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The rmsnorm kernel forward, the plain version's gradient back."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm_cuda(x, scale, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _recompute_grads(
+            ctx, lambda x, s: ref.rmsnorm_ref(x, s, ctx.eps), (g,)) + (None,)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash kernel forward, the plain version's gradient back (the
+    plain version reads KV heads by index, so autograd sums each group's
+    gradient into its KV head)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _recompute_grads(ctx, lambda q, k, v: ref.flash_attention_ref(
+            q, k, v, causal=ctx.causal, window=ctx.window), (g,)) \
+            + (None, None)
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The scan kernel forward, the plain version's gradient back, through
+    y, h_last or both (autograd hands zeros for an output with none)."""
+
+    @staticmethod
+    def forward(ctx, decay, inp, c, h0):
+        ctx.save_for_backward(decay, inp, c, h0)
+        return selective_scan_cuda(decay, inp, c, h0)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        return _recompute_grads(ctx, ref.selective_scan_ref, (gy, gh))
 
 
 def vq_nearest(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -97,6 +175,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
             x = x.contiguous()
         if scale.dtype == torch.float32 and not scale.is_contiguous():
             scale = scale.contiguous()
+        if _builds_graph(x, scale):
+            return _RMSNorm.apply(x, scale, eps)
         return rmsnorm_cuda(x, scale, eps=eps)
     return ref.rmsnorm_ref(x, scale, eps)
 
@@ -107,9 +187,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, T, Hq, D). The kernel reads KV head ``h // (Hq // Hkv)`` itself,
     so nothing is repeated (the reference's ``ops`` repeats k and v)."""
     if _on_card(q):
-        return flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal=causal,
-                                    window=window)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if _builds_graph(q, k, v):
+            return _FlashAttention.apply(q, k, v, causal, window)
+        return flash_attention_cuda(q, k, v, causal=causal, window=window)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
@@ -120,6 +201,8 @@ def selective_scan(decay: torch.Tensor, inp: torch.Tensor, c: torch.Tensor,
     (B, di, N)), ``h_t = decay_t * h_{t-1} + inp_t``, ``y_t = <h_t, c_t>``.
     Anything else raises, on the card and on the CPU alike."""
     if _on_card(decay):
+        if _builds_graph(decay, inp, c, h0):
+            return _SelectiveScan.apply(decay, inp, c, h0)
         return selective_scan_cuda(decay, inp, c, h0)
     check_scan_args(decay, inp, c, h0)
     return ref.selective_scan_ref(decay, inp, c, h0)

@@ -90,7 +90,7 @@ def test_encoder_matches_reference(tmp_path, kind):
     params = init_dvqae(jax.random.PRNGKey(1), jcfg)
     path = str(tmp_path / "p.npz")
     save_pytree(path, params)
-    tparams = load_npz(path, cfg)
+    tparams = load_npz(path, cfg, device="cpu")
     x = np.random.default_rng(2).standard_normal(xshape).astype(np.float32)
     jz, jsp = j_encode(params, jcfg, jnp.asarray(x))
     with torch.no_grad():
@@ -133,7 +133,7 @@ def test_numpy_init_has_reference_layout(kind):
     assert {k: v.shape for k, v in flat.items()} == \
         {k: v.shape for k, v in ref_flat.items()}
     jparams = _nest(flat)
-    tparams = params_from_numpy(flat, cfg)
+    tparams = params_from_numpy(flat, cfg, device="cpu")
     back = params_to_numpy(tparams)
     assert back.keys() == flat.keys()
     for k, v in flat.items():
@@ -147,3 +147,27 @@ def test_numpy_init_has_reference_layout(kind):
     np.testing.assert_allclose(rec.numpy(),
                                np.asarray(j_decode(jparams, jcfg, jz, sp)),
                                **TOL)
+
+
+def test_converters_need_an_explicit_cpu(tmp_path):
+    """The DVQ-AE converters run on cuda unless asked for the CPU: without a
+    GPU they raise and name ``device='cpu'``, and do not fall back."""
+    from repro_torch.convert import (init_numpy_probe, params_from_numpy,
+                                     probe_from_numpy)
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a host without a GPU")
+    over, _ = CASES["image"]
+    cfg = DVQAEConfig(**over)
+    flat = init_numpy_params(cfg, seed=0)
+    path = str(tmp_path / "p.npz")
+    np.savez(path, **flat)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy(flat, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_npz(path, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        probe_from_numpy(init_numpy_probe(8, 3))
+    # the same calls with device="cpu" load
+    assert load_npz(path, cfg, device="cpu")["codebook"].device.type == "cpu"
+    head = probe_from_numpy(init_numpy_probe(8, 3), device="cpu")
+    assert next(head.parameters()).device.type == "cpu"

@@ -125,7 +125,8 @@ def test_adversary_matches_reference_on_shared_weights():
     feats = rng.standard_normal((40, 6, 4)).astype(np.float32)
     labels = rng.integers(0, 5, 40)
     jadv = jaudit.init_adversary(jax.random.PRNGKey(2), 24, 5)
-    adv = probe_from_numpy({k: np.array(v) for k, v in jadv.items()})
+    adv = probe_from_numpy({k: np.array(v) for k, v in jadv.items()},
+                           device="cpu")
     jf, jy = jnp.asarray(feats), jnp.asarray(labels)
     tf, ty = torch.from_numpy(feats), torch.from_numpy(labels)
     np.testing.assert_allclose(

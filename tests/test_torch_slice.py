@@ -49,7 +49,8 @@ def twins(tmp_path):
     jsrv = JServer.init(jax.random.PRNGKey(0), jcfg)
     path = str(tmp_path / "params.npz")
     save_pytree(path, jsrv.state.params)
-    srv = OctopusServer(OC.ServerState(params=load_npz(path, cfg)), cfg,
+    srv = OctopusServer(OC.ServerState(params=load_npz(path, cfg,
+                                                       device="cpu")), cfg,
                         device="cpu")
     return jsrv, srv, jcfg, cfg
 
@@ -92,7 +93,7 @@ def test_slice_matches_reference(twins, tmp_path):
     ppath = str(tmp_path / "probe.npz")
     save_pytree(ppath, probe)
     with np.load(ppath) as data:
-        head = probe_from_numpy(dict(data))
+        head = probe_from_numpy(dict(data), device="cpu")
     with torch.no_grad():
         logits = head(tf)
     np.testing.assert_allclose(logits.numpy(),

@@ -84,7 +84,7 @@ def twins(tmp_path, over, seed=0):
         jax.random.PRNGKey(seed), jcfg)
     path = str(tmp_path / "params.npz")
     save_pytree(path, jparams)
-    return jparams, convert.load_npz(path, cfg), jcfg, cfg
+    return jparams, convert.load_npz(path, cfg, device="cpu"), jcfg, cfg
 
 
 def flat(tree):

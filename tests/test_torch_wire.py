@@ -53,7 +53,8 @@ def twin_servers(tmp_path, **over):
     jsrv = JServer.init(jax.random.PRNGKey(0), jcfg)
     path = str(tmp_path / "params.npz")
     save_pytree(path, jsrv.state.params)
-    srv = OctopusServer(OC.ServerState(params=load_npz(path, cfg)), cfg,
+    srv = OctopusServer(OC.ServerState(params=load_npz(path, cfg,
+                                                       device="cpu")), cfg,
                         device="cpu")
     return jsrv, srv
 
