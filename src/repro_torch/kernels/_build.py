@@ -49,6 +49,10 @@ _SIGNATURES = {
     "rt_encode_codes": (_P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _P),
+    # z, codebooks, words, counts, sums, pcounts, psums, R, P, K, M, bits,
+    # blocks a record, device, stream
+    "rt_encode_codes_resident": (_P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _P),
     "rt_decode_codes": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
     # z, codebook, out, N, K, M, device, stream
     "rt_vq_nearest": (_P, _P, _P, _L, _I, _I, _I, _P),

@@ -9,7 +9,8 @@
 //    call did more).
 //  * rt_sm_count reads the SM count once per device and keeps it.
 //  * rt_once_per_device runs a setup step (a kernel's shared-memory
-//    attribute) once per device and keeps its result.
+//    attribute) once per device and keeps its result; rt_allow_smem is
+//    that step for a kernel's dynamic shared-memory limit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,6 +54,20 @@ inline cudaError_t once_per_device(int device, Setup setup) {
   const cudaError_t err = setup();
   if (err == cudaSuccess) done[device].store(true, std::memory_order_release);
   return err;
+}
+
+template <auto Kernel>
+struct SmemAttr {};
+
+// Raise a kernel's dynamic shared-memory limit to the most it takes, once
+// per device.
+template <auto Kernel>
+inline cudaError_t allow_smem(int device, size_t bytes) {
+  return once_per_device<SmemAttr<Kernel>>(device, [bytes] {
+    return cudaFuncSetAttribute(Kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(bytes));
+  });
 }
 
 }  // namespace rt

@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import ops
 
 from .layers import dense_init, init_rmsnorm, rmsnorm
@@ -178,6 +179,9 @@ def attention(params: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
 
 def init_cache(cfg, batch: int, seq_len: int, *, device=None,
                dtype=torch.float32) -> KVCache:
+    """Zero k and v (B, seq_len, n_kv_heads, head_dim) on ``device``
+    (cuda unless ``device="cpu"``)."""
+    device = resolve_device(device)
     hd = cfg.resolved_head_dim
     shape = (batch, seq_len, cfg.n_kv_heads, hd)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),

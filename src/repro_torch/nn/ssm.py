@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.nn.layers import (_draw_device, causal_conv1d, dense_init,
                                    init_causal_conv1d)
@@ -116,7 +117,9 @@ def mamba(params: dict, cfg, x: torch.Tensor, *,
 
 def init_mamba_cache(cfg, batch: int, *, device=None,
                      dtype=torch.float32) -> MambaCache:
-    """Zero state (B, di, N) float32 and conv window (B, K - 1, di)."""
+    """Zero state (B, di, N) float32 and conv window (B, K - 1, di) on
+    ``device`` (cuda unless ``device="cpu"``)."""
+    device = resolve_device(device)
     s = cfg.ssm
     di = s.expand * cfg.d_model
     return MambaCache(

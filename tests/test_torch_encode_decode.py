@@ -26,7 +26,9 @@ from repro_torch.core.dvqae import DVQAEConfig  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.decode_codes import (decode_codes_cuda,  # noqa: E402
                                               stream_phases)
-from repro_torch.kernels.encode_codes import (encode_codes_cuda,  # noqa: E402
+from repro_torch.kernels.encode_codes import (RESIDENT_BUDGET,  # noqa: E402
+                                              encode_codes_cuda, encode_path,
+                                              resident_bytes,
                                               stacked_slice_table)
 from repro_torch.kernels.pack_bits import code_bits, packing_dims  # noqa: E402
 from repro_torch.kernels.vq_nn import vq_nearest_cuda  # noqa: E402
@@ -54,13 +56,39 @@ def ref_scores64(z, cb, n_groups, n_slices):
         R, P * S, n_groups)
 
 
-@pytest.mark.parametrize("n_groups,n_slices", [(1, 1), (16, 4)],
-                         ids=["vq_k256", "gsvq_g16s4"])
-def test_encode_codes_matches_reference(n_groups, n_slices):
-    rng = np.random.default_rng(n_groups)
-    R, P, M, K = 3, 50, 16, 256
+#: (seed, n_groups, n_slices, R, P, M, K, duplicated atom pairs (lo, hi)):
+#: the first two at the DVQ-AE's K; then shapes that the CUDA kernel's tiles
+#: make awkward (P one past a 128-row tile, K not a multiple of the atom
+#: sub-tile and 7 bits, M not a multiple of 16, two records), and atom
+#: copies on both sides of its sub-tile, thread and codebook boundaries
+ENCODE_CASES = {
+    "vq_k256": (1, 1, 1, 3, 50, 16, 256, ()),
+    "gsvq_g16s4": (16, 16, 4, 3, 50, 16, 256, ()),
+    "vq_r2_p129_k100_m48": (2, 1, 1, 2, 129, 48, 100, ()),
+    "vq_duplicated_atoms": (3, 1, 1, 2, 129, 64, 256,
+                            ((15, 16), (63, 64), (127, 128), (0, 255))),
+}
+
+
+def _encode_inputs(seed, R, P, M, K, dup_pairs):
+    """z and per-record codebooks, N(0, 1) float32; with ``dup_pairs``,
+    atom ``hi`` a copy of atom ``lo`` and every row close to a ``lo``."""
+    rng = np.random.default_rng(seed)
     z = rng.standard_normal((R, P, M)).astype(np.float32)
     cb = rng.standard_normal((R, K, M)).astype(np.float32)
+    if dup_pairs:
+        lo, hi = (np.array(v) for v in zip(*dup_pairs))
+        cb[:, hi] = cb[:, lo]
+        pick = lo[rng.integers(0, len(lo), (R, P))]
+        z = (np.take_along_axis(cb, pick[..., None], 1)
+             + 1e-2 * z).astype(np.float32)
+    return z, cb
+
+
+@pytest.mark.parametrize("case", list(ENCODE_CASES))
+def test_encode_codes_matches_reference(case):
+    seed, n_groups, n_slices, R, P, M, K, dup_pairs = ENCODE_CASES[case]
+    z, cb = _encode_inputs(seed, R, P, M, K, dup_pairs)
     gsvq = n_groups > 1
     bits = code_bits(n_groups if gsvq else K)
     S = n_slices if gsvq else 1
@@ -81,6 +109,9 @@ def test_encode_codes_matches_reference(n_groups, n_slices):
     print(f"encode {n_groups}/{n_slices}: {n_diff} of {codes.numel()} "
           f"codes differ")
     assert n_outside == 0 and n_diff <= 1e-3 * codes.numel()
+    if dup_pairs:                # a tie between copies keeps the lower index
+        assert not np.isin(codes.numpy(), [hi for _, hi in dup_pairs]).any()
+        assert not np.isin(jcodes.numpy(), [hi for _, hi in dup_pairs]).any()
     if n_diff == 0:
         np.testing.assert_array_equal(tw.numpy().view(np.uint32),
                                       np.asarray(jw))
@@ -93,6 +124,36 @@ def test_encode_codes_matches_reference(n_groups, n_slices):
         assert torch.equal(tc, c)
         torch.testing.assert_close(ts, s, rtol=1e-5, atol=1e-5)
 
+
+@pytest.mark.parametrize("case", ["vq_r2_p129_k100_m48",
+                                  "vq_duplicated_atoms"])
+def test_plain_encode_codes_are_the_vq_search(case):
+    """The plain VQ encode picks, record by record, the atom that the plain
+    vq_nearest picks: the CUDA kernels share one search the same way."""
+    seed, _, _, R, P, M, K, dup_pairs = ENCODE_CASES[case]
+    z, cb = (torch.from_numpy(a) for a in _encode_inputs(seed, R, P, M, K,
+                                                         dup_pairs))
+    bits = code_bits(K)
+    words, _, _ = ref.encode_codes_ref(z, cb, bits=bits)
+    codes = ref.unpack_records_ref(words, bits=bits, n_records=R,
+                                   per_record=P).reshape(R, P)
+    for r in range(R):
+        assert torch.equal(codes[r].to(torch.int32),
+                           ref.vq_nearest_ref(z[r], cb[r]))
+
+
+def test_encode_path_follows_the_shapes():
+    """Plain VQ whose codebook, z tiles and sums fit one block an SM takes
+    the resident kernel; GSVQ, wider atoms and larger codebooks keep the
+    thread-per-row kernel."""
+    assert encode_path(256, 64) == "resident"       # DVQAEConfig()
+    assert resident_bytes(256, 64) == 207_360 <= RESIDENT_BUDGET
+    for K, M in ((2, 64), (100, 48), (256, 16), (1024, 16), (1, 1)):
+        assert encode_path(K, M) == "resident", (K, M)
+    for K, M in ((512, 64), (257, 64), (256, 65), (2048, 16), (100, 33)):
+        assert encode_path(K, M) == "thread_per_row", (K, M)
+    assert encode_path(256, 64, n_groups=16, n_slices=4) == "thread_per_row"
+    assert encode_path(256, 48, n_groups=32, n_slices=3) == "thread_per_row"
 
 def test_stacked_slice_table_matches_reference():
     cb = np.random.default_rng(3).standard_normal((2, 8, 12)) \

@@ -24,13 +24,14 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import smoke_config as jsmoke_config  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.selective_scan import selective_scan_pallas  # noqa: E402
+from repro.nn import attention as jattn  # noqa: E402
 from repro.nn import layers as jlayers  # noqa: E402
 from repro.nn import ssm as jssm  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.selective_scan import (MAX_STATE,  # noqa: E402
                                                 selective_scan_cuda)
-from repro_torch.nn import layers, ssm  # noqa: E402
+from repro_torch.nn import attention, layers, ssm  # noqa: E402
 
 ARCH = "jamba_v0_1_52b"
 SCAN_TOL = 1e-5
@@ -228,7 +229,7 @@ def test_mamba_decode_matches_reference_and_prefill(mixer):
     x = np.random.default_rng(11).standard_normal(
         (3, S_, cfg.d_model)).astype(np.float32)
     full, full_cache = ssm.mamba(tp, cfg, torch.from_numpy(x))
-    cache = ssm.init_mamba_cache(cfg, 3)
+    cache = ssm.init_mamba_cache(cfg, 3, device="cpu")
     jcache = jssm.init_mamba_cache(jcfg, 3)
     for t in range(S_):
         out, cache = ssm.mamba(tp, cfg, torch.from_numpy(x[:, t:t + 1]),
@@ -241,3 +242,27 @@ def test_mamba_decode_matches_reference_and_prefill(mixer):
         _close(out.numpy()[:, 0], full.numpy()[:, t], MIXER_TOL, f"pre {t}")
     _close(cache.h.numpy(), full_cache.h.numpy(), MIXER_TOL)
     _close(cache.conv.numpy(), full_cache.conv.numpy(), MIXER_TOL)
+
+
+@pytest.mark.parametrize("kind", ["kv", "mamba"])
+def test_cache_initialisers_default_to_the_card(mixer, kind):
+    """init_cache and init_mamba_cache run on cuda unless asked otherwise:
+    with no device they raise on a host without a GPU; ``device="cpu"``
+    gives zero CPU tensors of the reference's shapes and types."""
+    jcfg, _, cfg, _ = mixer
+    if kind == "kv":
+        make = lambda **kw: attention.init_cache(cfg, 2, 5, **kw)  # noqa: E731
+        want = jattn.init_cache(jcfg, 2, 5)
+    else:
+        make = lambda **kw: ssm.init_mamba_cache(cfg, 2, **kw)  # noqa: E731
+        want = jssm.init_mamba_cache(jcfg, 2)
+    cache = make(device="cpu")
+    for t, w in zip(cache, want):
+        assert t.device.type == "cpu" and not t.any()
+        assert tuple(t.shape) == tuple(w.shape)
+        assert str(t.dtype).split(".")[-1] == str(w.dtype)
+    if torch.cuda.is_available():
+        assert all(t.device.type == "cuda" for t in make())
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
