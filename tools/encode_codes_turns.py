@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import math
 import subprocess
 import sys
 from pathlib import Path
@@ -141,15 +140,8 @@ def check(label, call, z, cb, scores):
 
 def device_split(fn):
     """(mean device ms a call, {kernel name: ms a call}) over PROFILE_REPS
-    calls (torch.profiler); each kernel's mean event time times its
-    launches a call, as chip_smoke.kernel_row reads it."""
-    events, _, _ = chip_smoke.profile_kernels(fn, reps=PROFILE_REPS)
-    by_name = {}
-    for n, a, b in events:
-        by_name.setdefault(n[:60], []).append((b - a) / 1e3)
-    split = {n: sum(d) / len(d) * math.ceil(len(d) / PROFILE_REPS)
-             for n, d in by_name.items()}
-    return (sum(split.values()) if events else None), split
+    calls (``chip_smoke.device_ms``)."""
+    return chip_smoke.device_ms(fn, PROFILE_REPS)[:2]
 
 
 def main(argv) -> int:
