@@ -32,7 +32,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.downstream import LinearProbe
+from repro_torch.core.downstream import ConvClassifier, LinearProbe
 from repro_torch.core.dvqae import DVQAEConfig, make_decoder, make_encoder
 from repro_torch.models.transformer import check_supported, segment_plan
 from repro_torch.nn.ssm import dt_rank
@@ -134,6 +134,31 @@ def probe_from_numpy(flat: Dict[str, np.ndarray], *,
                           for k in ("w1", "b1", "w2", "b2", "w3", "b3")})
     head.requires_grad_(False)
     return head.to(device)
+
+
+def conv_classifier_from_numpy(flat: Dict[str, np.ndarray], *,
+                               kind: str = "image",
+                               device=None) -> ConvClassifier:
+    """Reference conv-classifier arrays (``init_conv_classifier``'s tree,
+    path-keyed: ``c1/kernel``, ``c1/bias``, ``c2/kernel``, ``c2/bias``,
+    ``w``, ``b``, ``head``, ``hb``; HWIO or HIO kernels) -> module on
+    ``device`` (cuda unless ``device="cpu"``)."""
+    device = resolve_device(device)
+    k1, head = np.asarray(flat["c1/kernel"]), np.asarray(flat["head"])
+    model = ConvClassifier(k1.shape[-2], head.shape[1],
+                           hidden=k1.shape[-1], kind=kind)
+    state = {}
+    for name, p in model.named_parameters():
+        key = name.replace(".weight", "/kernel").replace(".", "/")
+        arr = np.asarray(flat[key], np.float32)
+        if key.endswith("kernel"):
+            arr = arr.transpose(_TO_TORCH[arr.ndim])
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{key}: shape {arr.shape} does not fit the "
+                             f"{kind} classifier's {tuple(p.shape)}")
+        state[name] = torch.tensor(arr)
+    model.load_state_dict(state)
+    return model.to(device)
 
 
 def init_numpy_probe(in_dim: int, n_classes: int, *, hidden: int = 128,

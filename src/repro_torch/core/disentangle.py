@@ -69,6 +69,23 @@ def recombine(public: torch.Tensor, private: torch.Tensor) -> torch.Tensor:
     return public + private
 
 
+def perturb_private(generator: Optional[torch.Generator],
+                    private: torch.Tensor, scale: float = 1.0
+                    ) -> torch.Tensor:
+    """§3.3 style transformation (1): Z∘' = Z∘ + scale * N(0, 1) noise
+    drawn from ``generator`` on its own device -- an anonymized copy."""
+    dev = None if generator is None else generator.device
+    noise = torch.randn(private.shape, generator=generator,
+                        dtype=private.dtype, device=dev)
+    return private + scale * noise.to(private.device)
+
+
+def replace_private(private_src: torch.Tensor) -> torch.Tensor:
+    """§3.3 style transformation (2): swap in a reference sample's Z∘.
+    Returned as is; named for the protocol's clarity."""
+    return private_src
+
+
 def total_loss(x: torch.Tensor, x_rec: torch.Tensor,
                dis: DisentangledLatent, *, alpha: float = 1.0,
                beta: float = 0.25, lam: float = 0.01):

@@ -1,9 +1,9 @@
-"""Downstream head on decoded OCTOPUS features (§3.1.1, §3.6).
+"""Downstream models (§3.1.1, §3.6): a small conv classifier on raw
+images or speech (the centralized/federated baseline) and a linear probe
+on decoded OCTOPUS features.
 
-Port of the probe part of ``repro.core.downstream``: the paper's
-three-linear-layer probe as an ``nn.Module``, its training
-(:func:`sgd_train`, AdamW on cross-entropy) and :func:`accuracy`. The
-conv classifier baseline is not ported yet.
+Port of ``repro.core.downstream``: both models as ``nn.Module``s, their
+training (:func:`sgd_train`, AdamW on cross-entropy) and :func:`accuracy`.
 """
 from __future__ import annotations
 
@@ -13,7 +13,39 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.nn.layers import dense_init
+from repro_torch.nn.layers import Conv1d, Conv2d, dense_init
+
+
+class ConvClassifier(nn.Module):
+    """The conv baseline: two stride-2 SAME convs (k 3) with ReLU, global
+    average pooling, a dense layer with ReLU and a head. ``kind="image"``
+    takes (B, H, W, C) images, ``kind="speech"`` (B, T, C) frames; dense
+    weights are (in, out), used as ``x @ w``."""
+
+    def __init__(self, in_channels: int, n_classes: int, hidden: int = 32,
+                 kind: str = "image", *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if kind not in ("image", "speech"):
+            raise ValueError(f"kind must be image or speech, got {kind!r}")
+        g = generator
+        conv = Conv2d if kind == "image" else Conv1d
+        self.kind = kind
+        self.c1 = conv(in_channels, hidden, 3, generator=g)
+        self.c2 = conv(hidden, hidden * 2, 3, generator=g)
+        self.w = nn.Parameter(dense_init(hidden * 2, hidden * 2, generator=g))
+        self.b = nn.Parameter(torch.zeros(hidden * 2))
+        self.head = nn.Parameter(dense_init(hidden * 2, n_classes,
+                                            generator=g))
+        self.hb = nn.Parameter(torch.zeros(n_classes))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x.movedim(-1, 1)                          # channels first
+        h = F.relu(self.c1(h, stride=2))
+        h = F.relu(self.c2(h, stride=2))
+        h = h.mean(dim=tuple(range(2, h.ndim)))       # GAP
+        h = F.relu(h @ self.w + self.b)
+        return h @ self.head + self.hb
 
 
 class LinearProbe(nn.Module):

@@ -1,10 +1,11 @@
 """Codebook EMA updates (OCTOPUS §2.6, Eq. 7-9): the Step 5 refresh.
 
-Port of the part of ``repro.core.ema`` the client needs: the refresh from
-the sufficient statistics that the encode kernel emits, so the refresh
-never re-runs the encoder, and :func:`assignment_stats` for a refresh
-from explicit codes. The fixed-point server merge comes with the
-population slice.
+Port of ``repro.core.ema`` on one device: the refresh from the
+sufficient statistics that the encode kernel emits, so the refresh never
+re-runs the encoder, the refresh from explicit codes, and the Step 5
+server merge's associative fixed-point statistics. The reference's
+``ema_update_distributed`` (a ``shard_map`` body with a ``psum``) comes
+with the port's process-group code.
 
     N_i <- gamma N_i + (1-gamma) n_i
     m_i <- gamma m_i + (1-gamma) sum_j z_{i,j}
@@ -14,7 +15,10 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from repro_torch import resolve_device
 
 
 class EMAState(NamedTuple):
@@ -58,3 +62,95 @@ def ema_update_from_stats(state: EMAState, n: torch.Tensor, s: torch.Tensor,
     smoothed = ((counts + laplace_eps) / (total + K * laplace_eps)) * total
     codebook = (sums / smoothed[..., None]).to(state.codebook.dtype)
     return EMAState(counts=counts, sums=sums, codebook=codebook)
+
+
+def ema_update(state: EMAState, z_e: torch.Tensor, indices: torch.Tensor,
+               gamma: float = 0.99, laplace_eps: float = 1e-5) -> EMAState:
+    """One EMA step from (..., M) latents and their z_e.shape[:-1] codes."""
+    n, s = assignment_stats(z_e, indices, state.codebook.shape[0])
+    return ema_update_from_stats(state, n, s, gamma=gamma,
+                                 laplace_eps=laplace_eps)
+
+
+def batch_optimal_atoms(z_e: torch.Tensor, indices: torch.Tensor,
+                        n_atoms: int):
+    """Eq. 8: each atom's mean assigned latent (the EMA fixed point), and
+    the counts -> ((K, M), (K,))."""
+    n, s = assignment_stats(z_e, indices, n_atoms)
+    return s / n.clamp(min=1.0)[:, None], n
+
+
+# ---------------------------------------------------- associative Step-5 merge
+#
+# Averaging in floats is not associative, so a population merged cohort by
+# cohort would drift in the last bits from the same population merged in
+# one shot. MergeStats accumulates in fixed-point int64 instead: each
+# client's contribution is quantized once, independently of its cohort,
+# and summed with integer adds, which are exactly associative and
+# commutative. The one division back to a codebook happens at the end.
+#
+# The totals equal the reference's (numpy float64) bit for bit on either
+# device because every step is one correctly rounded IEEE operation:
+# float64 casts and products in the reference's order, round half to even
+# (``torch.round`` as ``np.rint``), int64 sums. Nothing here may be fused
+# into a multiply-add. The one exception is the staleness decay: CUDA's
+# double ``pow`` is not correctly rounded, so ``decay ** staleness`` is
+# formed on the host with numpy, as the reference forms it.
+
+MERGE_FIXED_BITS = 24                     # fractional bits of the fixed point
+_MERGE_SCALE = float(1 << MERGE_FIXED_BITS)
+
+
+class MergeStats(NamedTuple):
+    """Associative sufficient statistics for the Step-5 codebook merge.
+
+    num: (K, M) int64 -- sum over clients of round(count_k * cb_km * 2^24)
+    den: (K,)  int64 -- sum over clients of round(count_k * 2^24)
+    """
+    num: torch.Tensor
+    den: torch.Tensor
+
+
+def merge_stats_zero(n_atoms: int, dim: int, *, device=None) -> MergeStats:
+    """Identity element of :func:`merge_stats_add`, on ``device`` (cuda
+    unless ``device="cpu"``)."""
+    dev = resolve_device(device)
+    return MergeStats(
+        num=torch.zeros((n_atoms, dim), dtype=torch.int64, device=dev),
+        den=torch.zeros((n_atoms,), dtype=torch.int64, device=dev))
+
+
+def merge_stats(codebooks: torch.Tensor, counts: torch.Tensor, *,
+                staleness=None, staleness_decay: float = 0.5) -> MergeStats:
+    """Fixed-point merge statistics of a cohort, on the device of
+    ``codebooks``: (C, K, M) codebooks and (C, K) counts, or one client's
+    (K, M) and (K,). ``staleness``: optional (C,) rounds behind current,
+    each client weighted ``staleness_decay ** staleness``."""
+    cbs = codebooks.detach().to(torch.float64)
+    w = counts.detach().to(device=cbs.device, dtype=torch.float64)
+    if cbs.ndim == 2:
+        cbs, w = cbs[None], w[None]
+    if staleness is not None:
+        st = np.asarray(torch.as_tensor(staleness).cpu(), np.float64)
+        decay = np.power(float(staleness_decay), st)
+        w = w * torch.from_numpy(decay).to(cbs.device)[:, None]
+    den_f = w * _MERGE_SCALE                                 # (C, K)
+    num_f = den_f[..., None] * cbs                           # (C, K, M)
+    return MergeStats(num=torch.round(num_f).to(torch.int64).sum(dim=0),
+                      den=torch.round(den_f).to(torch.int64).sum(dim=0))
+
+
+def merge_stats_add(a: MergeStats, b: MergeStats) -> MergeStats:
+    """Exactly associative and commutative combine (int64 adds)."""
+    return MergeStats(num=a.num + b.num, den=a.den + b.den)
+
+
+def merge_codebook(stats: MergeStats, current: torch.Tensor) -> torch.Tensor:
+    """Finish the merge: integer totals -> a codebook of ``current``'s
+    dtype, on their device. Atoms with no weight (``den <= 0``) keep their
+    ``current`` row."""
+    live = stats.den > 0
+    den = torch.where(live, stats.den, 1).to(torch.float64)
+    merged = stats.num.to(torch.float64) / den[:, None]
+    out = torch.where(live[:, None], merged, current.to(torch.float64))
+    return out.to(current.dtype)

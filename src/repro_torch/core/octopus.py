@@ -14,12 +14,13 @@ Server:  Step 1  pretrain the global DVQ-AE on public data (ATD)
 Clients: Step 2  one-shot local fine-tune, codebook frozen
          Steps 3-4  quantize and transmit codes (``wire.session``)
          Step 5  EMA codebook refresh
+Server:  Step 5 tail  merge the clients' codebooks into the global one
 Server:  Step 6  downstream training on the gathered codes
 """
 from __future__ import annotations
 
 import copy
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -27,7 +28,8 @@ from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
                                      leaves)
 
 from .dvqae import DVQAEConfig, DVQAEOut, forward
-from .ema import EMAState, assignment_stats, ema_update_from_stats, init_ema
+from .ema import (EMAState, MergeStats, assignment_stats,
+                  ema_update_from_stats, init_ema, merge_codebook)
 
 
 class ClientState(NamedTuple):
@@ -213,6 +215,58 @@ def client_codebook_refresh(client: ClientState, cfg: DVQAEConfig,
     ema = ema_update_from_stats(client.ema, *stats, gamma=gamma)
     params = {**client.params, "codebook": ema.codebook}
     return ClientState(params=params, ema=ema, step=client.step)
+
+
+def stack_clients(clients: Sequence[ClientState]) -> ClientState:
+    """Client states -> one ClientState whose codebook, EMA fields and step
+    carry a leading (n_clients, ...) axis, the stacked population the
+    merge takes. The encoders and decoders are modules and are not
+    stacked: the stacked state holds only the codebook."""
+    ema = EMAState(*(torch.stack([getattr(c.ema, f) for c in clients])
+                     for f in EMAState._fields))
+    return ClientState(
+        params={"codebook": torch.stack([c.params["codebook"]
+                                         for c in clients])},
+        ema=ema, step=torch.tensor([int(c.step) for c in clients]))
+
+
+def server_merge_codebooks(server: ServerState, client_codebooks,
+                           client_counts, *, staleness=None,
+                           staleness_decay: float = 1.0) -> ServerState:
+    """Count-weighted average of synced client codebooks (the Step 5
+    tail), on the device of the server's codebook. Takes sequences of
+    per-client (K, M) / (K,) tensors or stacked (C, K, M) / (C, K) ones.
+    ``staleness`` ((C,) int, optional) discounts each client's counts by
+    ``staleness_decay ** staleness``. Atoms whose total weight is at most
+    1e-9 keep the current dictionary."""
+    cur = server.params["codebook"]
+
+    def stacked(x):
+        x = x if torch.is_tensor(x) else torch.stack(list(x))
+        return x.detach().to(cur.device)
+
+    cbs, w = stacked(client_codebooks), stacked(client_counts)
+    if staleness is not None:
+        st = torch.as_tensor(staleness, device=cur.device)
+        w = w * torch.pow(staleness_decay, st.to(torch.float32))[:, None]
+    tot = w.sum(dim=0)                                        # (K,)
+    merged = torch.einsum("ck,ckm->km", w / tot[None].clamp(min=1e-9), cbs)
+    # atoms with no effective contribution keep the current dictionary
+    merged = torch.where(tot[:, None] > 1e-9, merged,
+                         cur.detach().to(merged.dtype))
+    params = {**server.params, "codebook": merged.to(cur.dtype)}
+    return ServerState(params=params, opt=server.opt, step=server.step)
+
+
+def server_merge_stats(server: ServerState, stats: MergeStats
+                       ) -> ServerState:
+    """The Step 5 tail from associative fixed-point statistics
+    (:func:`~repro_torch.core.ema.merge_stats`): bit-identical for any
+    cohort partition or order of the same clients; atoms with no weight
+    keep the current dictionary."""
+    merged = merge_codebook(stats, server.params["codebook"].detach())
+    params = {**server.params, "codebook": merged}
+    return ServerState(params=params, opt=server.opt, step=server.step)
 
 
 def decode_table(cfg: DVQAEConfig, codebook: torch.Tensor):

@@ -1,13 +1,15 @@
-"""Synthetic content/style factorized images, and LM token sequences.
+"""Synthetic content/style factorized images and speech, and LM tokens.
 
-Port of the image and token parts of ``repro.data.synthetic``: content =
-which glyph is drawn (the downstream label), style = an identity's
-channel gains, bias and background tint (the private attribute); tokens
-with Zipf marginals and a bigram structure. The reference draws
-with ``jax.random``; the port draws with an explicit CPU
-``torch.Generator``, so the two make different images from one seed.
-Data is drawn on the host, as a client's data is, and the session entry
-points move it to their device.
+Port of ``repro.data.synthetic``. Images: content = which glyph is drawn
+(the downstream label), style = an identity's channel gains, bias and
+background tint (the private attribute). Speech: content = a sequence of
+phonemes, each a characteristic band pattern over the feature channels
+(the label is the first), style = a speaker's channel gains and bias.
+Tokens: Zipf marginals and a bigram structure. The reference draws with
+``jax.random``; the port draws with an explicit CPU ``torch.Generator``,
+so the two make different data from one seed. Data is drawn on the host,
+as a client's data is, and the session entry points move it to their
+device.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 
 
 class LabeledData(NamedTuple):
-    x: torch.Tensor          # images (N, H, W, C)
+    x: torch.Tensor          # images (N, H, W, C) or speech (N, T, C)
     content: torch.Tensor    # public label (N,)
     style: torch.Tensor      # private label / identity (N,)
 
@@ -72,6 +74,55 @@ def make_images(generator: Optional[torch.Generator], n: int, *,
     noise = 0.05 * torch.randn((n, size, size, channels), generator=g)
     x = base * gs + (1.0 - base) * t + b + noise
     return LabeledData(x=x, content=content, style=style)
+
+
+# ------------------------------------------------------------------ speech
+
+N_PHONEMES = 16
+
+
+def _phoneme_bank(channels: int) -> torch.Tensor:
+    """(N_PHONEMES, channels) characteristic spectral patterns: a Gaussian
+    band around the phoneme's centre channel plus a phoneme-specific
+    ripple."""
+    c = torch.arange(channels, dtype=torch.float32)
+    width = channels / (N_PHONEMES * 1.5)
+    pat = []
+    for p in range(N_PHONEMES):
+        centre = (p + 0.5) * channels / N_PHONEMES
+        pat.append(torch.exp(-0.5 * ((c - centre) / width) ** 2)
+                   + 0.3 * torch.sin(c * (p + 1) * 0.37))
+    return torch.stack(pat)
+
+
+def assemble_speech(seq: torch.Tensor, style: torch.Tensor,
+                    gains: torch.Tensor, bias: torch.Tensor,
+                    noise: torch.Tensor, *, frames: int) -> LabeledData:
+    """Clips from their draws: phonemes ``seq`` (n, per_clip), speakers
+    ``style`` (n,), per-speaker ``gains`` and ``bias`` (speakers, C) and
+    additive ``noise`` (n, frames, C). Each phoneme holds
+    ``frames // per_clip`` frames; x = bank[phoneme] * gain + bias +
+    noise."""
+    seg = frames // seq.shape[1]
+    per_frame = seq.repeat_interleave(seg, dim=1)[:, :frames]  # (n, frames)
+    base = _phoneme_bank(gains.shape[1])[per_frame]           # (n, frames, C)
+    x = base * gains[style][:, None, :] + bias[style][:, None, :]
+    return LabeledData(x=x + noise, content=seq[:, 0], style=style)
+
+
+def make_speech(generator: Optional[torch.Generator], n: int, *,
+                frames: int = 64, channels: int = 16, n_speakers: int = 10,
+                phonemes_per_clip: int = 4) -> LabeledData:
+    """Speech-like clips on the CPU: phoneme band patterns under a
+    speaker's channel transform. The label is the first phoneme; the
+    whole sequence is recoverable frame by frame."""
+    g = generator
+    seq = torch.randint(0, N_PHONEMES, (n, phonemes_per_clip), generator=g)
+    style = torch.randint(0, n_speakers, (n,), generator=g)
+    gains = 0.5 + torch.rand((n_speakers, channels), generator=g)
+    bias = 0.3 * torch.randn((n_speakers, channels), generator=g)
+    noise = 0.05 * torch.randn((n, frames, channels), generator=g)
+    return assemble_speech(seq, style, gains, bias, noise, frames=frames)
 
 
 # ---------------------------------------------------------- LM token data

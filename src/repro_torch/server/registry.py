@@ -7,9 +7,11 @@ payload decodes against exactly the table it was packed under.
 """
 from __future__ import annotations
 
-from typing import Dict, Set
+from typing import Dict, Set, Tuple
 
 import torch
+
+from repro_torch.core import octopus as OC
 
 
 class CodebookRegistry:
@@ -47,3 +49,20 @@ class CodebookRegistry:
 
     def is_retired(self, version: int) -> bool:
         return int(version) in self._retired
+
+    def merge(self, server: OC.ServerState, client_codebooks, client_counts,
+              *, client_versions=None, staleness_decay: float = 1.0
+              ) -> Tuple[OC.ServerState, int]:
+        """Staleness-weighted Step 5 merge, then registration of the merged
+        dictionary. ``client_versions``: the registry version each client
+        last deployed from; staleness ``max(latest - version, 0)``
+        discounts its counts by ``staleness_decay ** staleness`` (only
+        when the decay is not 1). Returns (merged state, new version)."""
+        staleness = None
+        if client_versions is not None and staleness_decay != 1.0:
+            staleness = (self.latest - torch.as_tensor(
+                client_versions, dtype=torch.int32)).clamp(min=0)
+        merged = OC.server_merge_codebooks(
+            server, client_codebooks, client_counts, staleness=staleness,
+            staleness_decay=staleness_decay)
+        return merged, self.register(merged.params["codebook"])

@@ -1,8 +1,8 @@
 """Session facades over the wire protocol: one client entry, one server
 entry.
 
-Port of ``repro.wire.session`` without the exactly-once send, the sync
-and the server runtime's options:
+Port of ``repro.wire.session`` without the exactly-once send, the
+migration windows and the server runtime's options:
 
   * :class:`OctopusClient` — ``round(batch)`` is the uplink entry: Step 2
     (``n_local_steps`` of frozen-codebook fine-tuning, one by default),
@@ -10,13 +10,16 @@ and the server runtime's options:
     quantizes, bit-packs and sums the EMA statistics, the Step 5 refresh
     from those statistics, and a :class:`CodePayload` back.
     ``transmit(batch)`` is the encode-only uplink (Steps 3-4);
-    ``finetune(batch)`` is Step 2 alone.
+    ``finetune(batch)`` is Step 2 alone; ``sync(server)`` adopts the
+    server's latest merged dictionary and its version.
   * :class:`OctopusServer` — ``pretrain`` is Step 1; ``ingest(payload)``
     returns an :class:`AdmissionResult` verdict; accepted payloads land
     in a versioned ``CodeStore`` keyed on the payload's OWN codebook
     version, and ``features()`` / ``decode()`` decode against the
     registry snapshot the payload was packed under, one fused dispatch
-    per version.
+    per version. ``merge`` / ``merge_clients`` (count- and
+    staleness-weighted float merge) and ``merge_stats`` (the associative
+    fixed-point merge) are the Step 5 tail: each registers a new version.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU they raise rather than fall back (``repro_torch.resolve_device``).
@@ -30,6 +33,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import octopus as OC
 from repro_torch.core.dvqae import DVQAEConfig
+from repro_torch.core.ema import init_ema
 
 from .payload import SUPPORTED_WIRE_VERSIONS, CodePayload
 
@@ -143,6 +147,16 @@ class OctopusClient:
         """Encode-only uplink (Steps 3-4): no fine-tuning, no refresh."""
         return self.round(batch, labels=labels, finetune=0, refresh=False)
 
+    def sync(self, server: "OctopusServer") -> None:
+        """Adopt the server's latest merged dictionary and its version (the
+        Step 5 tail on the client side): the local EMA restarts from the
+        adopted atoms, the fine-tuned encoder and decoder stay."""
+        cb = server.registry.current.clone()
+        self.state = OC.ClientState(
+            params={**self.state.params, "codebook": cb},
+            ema=init_ema(cb), step=self.state.step)
+        self.version = int(server.version)
+
 
 class OctopusServer:
     """Server session: versioned registry + code store behind ONE door."""
@@ -243,3 +257,28 @@ class OctopusServer:
         feats = OC.codes_to_features(self.cfg, payload,
                                      self.registry.get(payload.version))
         return feats.reshape((-1,) + tuple(feats.shape[2:]))
+
+    # --------------------------------------------------------- Step 5 tail
+
+    def merge(self, client_codebooks, client_counts, *, client_versions=None,
+              staleness_decay: float = 1.0) -> int:
+        """Staleness-weighted Step 5 merge; registers and returns the new
+        codebook version."""
+        self.state, version = self.registry.merge(
+            self.state, client_codebooks, client_counts,
+            client_versions=client_versions,
+            staleness_decay=staleness_decay)
+        return version
+
+    def merge_clients(self, clients: OC.ClientState, **kw) -> int:
+        """Merge a stacked population (:func:`octopus.stack_clients`)."""
+        return self.merge(clients.params["codebook"], clients.ema.counts,
+                          **kw)
+
+    def merge_stats(self, stats) -> int:
+        """Step 5 tail from associative cohort statistics
+        (:class:`~repro_torch.core.ema.MergeStats`): bit-identical for any
+        cohort partition or order of the same clients. Registers and
+        returns the new version."""
+        self.state = OC.server_merge_stats(self.state, stats)
+        return self.registry.register(self.state.params["codebook"])
