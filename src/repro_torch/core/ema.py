@@ -120,14 +120,33 @@ def merge_stats_zero(n_atoms: int, dim: int, *, device=None) -> MergeStats:
         den=torch.zeros((n_atoms,), dtype=torch.int64, device=dev))
 
 
-def merge_stats(codebooks: torch.Tensor, counts: torch.Tensor, *,
-                staleness=None, staleness_decay: float = 0.5) -> MergeStats:
-    """Fixed-point merge statistics of a cohort, on the device of
-    ``codebooks``: (C, K, M) codebooks and (C, K) counts, or one client's
-    (K, M) and (K,). ``staleness``: optional (C,) rounds behind current,
-    each client weighted ``staleness_decay ** staleness``."""
-    cbs = codebooks.detach().to(torch.float64)
-    w = counts.detach().to(device=cbs.device, dtype=torch.float64)
+def _device_of(x, device):
+    """A tensor's device (a sequence's first element's); for numpy,
+    :func:`~repro_torch.resolve_device` of ``device``."""
+    first = x[0] if isinstance(x, (list, tuple)) and len(x) else x
+    return first.device if torch.is_tensor(first) else resolve_device(device)
+
+
+def as_stacked(x, device) -> torch.Tensor:
+    """``x`` as one tensor on ``device``, without tracking gradients: a
+    tensor, a numpy array, or a sequence of either (stacked)."""
+    if isinstance(x, (list, tuple)):
+        return torch.stack([torch.as_tensor(v).detach().to(device)
+                            for v in x])
+    return torch.as_tensor(x).detach().to(device)
+
+
+def merge_stats(codebooks, counts, *, staleness=None,
+                staleness_decay: float = 0.5, device=None) -> MergeStats:
+    """Fixed-point merge statistics of a cohort: (C, K, M) codebooks and
+    (C, K) counts, or one client's (K, M) and (K,), as tensors, numpy
+    arrays or sequences of either. ``staleness``: optional (C,) rounds
+    behind current, each client weighted ``staleness_decay ** staleness``.
+    On the device of tensor ``codebooks``; numpy ones go to ``device``
+    (cuda unless ``device="cpu"``)."""
+    dev = _device_of(codebooks, device)
+    cbs = as_stacked(codebooks, dev).to(torch.float64)
+    w = as_stacked(counts, dev).to(torch.float64)
     if cbs.ndim == 2:
         cbs, w = cbs[None], w[None]
     if staleness is not None:
@@ -140,17 +159,30 @@ def merge_stats(codebooks: torch.Tensor, counts: torch.Tensor, *,
                       den=torch.round(den_f).to(torch.int64).sum(dim=0))
 
 
-def merge_stats_add(a: MergeStats, b: MergeStats) -> MergeStats:
-    """Exactly associative and commutative combine (int64 adds)."""
-    return MergeStats(num=a.num + b.num, den=a.den + b.den)
+def merge_stats_add(a: MergeStats, b: MergeStats, *,
+                    device=None) -> MergeStats:
+    """Exactly associative and commutative combine (int64 adds). Fields may
+    be tensors or numpy int64 (the reference's); the sum lies on a tensor
+    field's device, or on ``device`` (cuda unless ``device="cpu"``) when
+    every field is numpy."""
+    dev = next((f.device for f in (*a, *b) if torch.is_tensor(f)), None)
+    if dev is None:
+        dev = resolve_device(device)
+    return MergeStats(num=as_stacked(a.num, dev) + as_stacked(b.num, dev),
+                      den=as_stacked(a.den, dev) + as_stacked(b.den, dev))
 
 
-def merge_codebook(stats: MergeStats, current: torch.Tensor) -> torch.Tensor:
-    """Finish the merge: integer totals -> a codebook of ``current``'s
-    dtype, on their device. Atoms with no weight (``den <= 0``) keep their
-    ``current`` row."""
-    live = stats.den > 0
-    den = torch.where(live, stats.den, 1).to(torch.float64)
-    merged = stats.num.to(torch.float64) / den[:, None]
-    out = torch.where(live[:, None], merged, current.to(torch.float64))
-    return out.to(current.dtype)
+def merge_codebook(stats: MergeStats, current, *,
+                   device=None) -> torch.Tensor:
+    """Finish the merge: integer totals (tensors or numpy int64) -> a
+    codebook of ``current``'s dtype, on the device of tensor ``current``;
+    a numpy one goes to ``device`` (cuda unless ``device="cpu"``). Atoms
+    with no weight (``den <= 0``) keep their ``current`` row."""
+    cur = as_stacked(current, _device_of(current, device))
+    num = as_stacked(stats.num, cur.device)
+    den = as_stacked(stats.den, cur.device)
+    live = den > 0
+    den = torch.where(live, den, 1).to(torch.float64)
+    merged = num.to(torch.float64) / den[:, None]
+    out = torch.where(live[:, None], merged, cur.to(torch.float64))
+    return out.to(cur.dtype)

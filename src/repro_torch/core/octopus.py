@@ -28,7 +28,7 @@ from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
                                      leaves)
 
 from .dvqae import DVQAEConfig, DVQAEOut, forward
-from .ema import (EMAState, MergeStats, assignment_stats,
+from .ema import (EMAState, MergeStats, as_stacked, assignment_stats,
                   ema_update_from_stats, init_ema, merge_codebook)
 
 
@@ -235,17 +235,14 @@ def server_merge_codebooks(server: ServerState, client_codebooks,
                            staleness_decay: float = 1.0) -> ServerState:
     """Count-weighted average of synced client codebooks (the Step 5
     tail), on the device of the server's codebook. Takes sequences of
-    per-client (K, M) / (K,) tensors or stacked (C, K, M) / (C, K) ones.
+    per-client (K, M) / (K,) tensors or numpy arrays, or stacked (C, K, M)
+    / (C, K) ones.
     ``staleness`` ((C,) int, optional) discounts each client's counts by
     ``staleness_decay ** staleness``. Atoms whose total weight is at most
     1e-9 keep the current dictionary."""
     cur = server.params["codebook"]
-
-    def stacked(x):
-        x = x if torch.is_tensor(x) else torch.stack(list(x))
-        return x.detach().to(cur.device)
-
-    cbs, w = stacked(client_codebooks), stacked(client_counts)
+    cbs = as_stacked(client_codebooks, cur.device)
+    w = as_stacked(client_counts, cur.device)
     if staleness is not None:
         st = torch.as_tensor(staleness, device=cur.device)
         w = w * torch.pow(staleness_decay, st.to(torch.float32))[:, None]
@@ -261,9 +258,9 @@ def server_merge_codebooks(server: ServerState, client_codebooks,
 def server_merge_stats(server: ServerState, stats: MergeStats
                        ) -> ServerState:
     """The Step 5 tail from associative fixed-point statistics
-    (:func:`~repro_torch.core.ema.merge_stats`): bit-identical for any
-    cohort partition or order of the same clients; atoms with no weight
-    keep the current dictionary."""
+    (:func:`~repro_torch.core.ema.merge_stats`, or the reference's numpy
+    int64 ones): bit-identical for any cohort partition or order of the
+    same clients; atoms with no weight keep the current dictionary."""
     merged = merge_codebook(stats, server.params["codebook"].detach())
     params = {**server.params, "codebook": merged}
     return ServerState(params=params, opt=server.opt, step=server.step)

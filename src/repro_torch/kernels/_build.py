@@ -53,6 +53,10 @@ _SIGNATURES = {
     # blocks a record, device, stream
     "rt_encode_codes_resident": (_P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _P),
+    # z, codebooks, words, counts, sums, pcounts, psums, R, P, K, M,
+    # n_slices, n_groups, bits, blocks a record, device, stream
+    "rt_encode_codes_gsvq": (_P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "rt_decode_codes": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
     # z, codebook, out, N, K, M, device, stream
     "rt_vq_nearest": (_P, _P, _P, _L, _I, _I, _I, _P),

@@ -36,20 +36,24 @@ __device__ __forceinline__ uint32_t unpack_code(const uint32_t* w, int j,
   return v & code_mask(bits);
 }
 
-// Pack the G codes at `codes` into the group's W words at `out` (bits known
-// at run time): word i ORs in every code whose bits overlap it.
+// Word i of the group of G codes at `codes` (bits known at run time): the
+// OR of every code whose bits overlap it.
+__device__ __forceinline__ uint32_t pack_word(const int* codes, int bits,
+                                              int G, int i) {
+  const uint32_t mask = code_mask(bits);
+  uint32_t acc = 0;
+  const int j0 = (32 * i) / bits;
+  const int j1 = min(G - 1, (32 * i + 31) / bits);
+  for (int j = j0; j <= j1; ++j) {
+    const uint32_t c = static_cast<uint32_t>(codes[j]) & mask;
+    const int o = j * bits - 32 * i;  // in (-bits, 32)
+    acc |= o >= 0 ? (c << o) : (c >> (-o));
+  }
+  return acc;
+}
+
+// Pack the G codes at `codes` into the group's W words at `out`.
 __device__ __forceinline__ void pack_group(const int* codes, int bits, int G,
                                            int W, uint32_t* out) {
-  const uint32_t mask = code_mask(bits);
-  for (int i = 0; i < W; ++i) {
-    uint32_t acc = 0;
-    const int j0 = (32 * i) / bits;
-    const int j1 = min(G - 1, (32 * i + 31) / bits);
-    for (int j = j0; j <= j1; ++j) {
-      const uint32_t c = static_cast<uint32_t>(codes[j]) & mask;
-      const int o = j * bits - 32 * i;  // in (-bits, 32)
-      acc |= o >= 0 ? (c << o) : (c >> (-o));
-    }
-    out[i] = acc;
-  }
+  for (int i = 0; i < W; ++i) out[i] = pack_word(codes, bits, G, i);
 }

@@ -19,7 +19,7 @@
 // order. No float atomics, so words, counts and sums are the same from run
 // to run. Pad rows (past the record's count) pack as 0 and cast no vote.
 //
-// Two paths, chosen by the wrapper from the shapes:
+// Three paths, chosen by the wrapper from the shapes:
 //
 // VQ with the codebook resident (encode_resident_kernel; every DVQ-AE
 // config's uplink: K atoms of width M <= 64, at most 32 or even, whose
@@ -46,7 +46,43 @@
 //    every row with a predicate, or one row a round trip, cost several times
 //    more; then come the packing, the partials and the reduce (PERF.md).
 //
-// GSVQ, or a codebook too large to keep (encode_kernel): one block owns
+// GSVQ with every slice table resident (gsvq_tiled_kernel; the speech
+// config's 3-bit uplink, g8s2: slice widths m <= 64, m % 4 == 0, whose S
+// tables, two latent tiles, a pass's distances and the vote warps'
+// (n_groups, M) sums fit one block an SM, 175 KB at g8s2). Bound: the FP32
+// pipes' instruction rate. Each (slice row, atom) score takes m FMAs and a
+// tail (subtract, add, max, add, the correctly rounded square root, the
+// group add) of ten more FP32 instructions (and __fsqrt_rn's range test,
+// an integer add, a compare and a branch), so at m = 32 the tail is a
+// quarter of the work:
+//  * One block of 16 warps an SM, spread over the records, each walking its
+//    record's tiles of 32 positions (64 at S = 1), so the speech transmit's
+//    7,680 positions make 240 tiles for 132 SMs; the block stages its
+//    record's S slice tables straight from the (K, M) codebook and their
+//    norms once, and the next latent tile lands by cp.async while this one
+//    is scored.
+//  * A pass scores two units of 32 slice rows, each of one slice, against
+//    their slice's atoms: a warp takes a unit and a window of 32 atoms, 8 x
+//    4 scores a thread in FP32 FMA, a 16-byte read of shared memory shared
+//    by 8 lanes (a row) or 4 (an atom), and takes its rows' ||z_s||^2
+//    itself. The square root is __fsqrt_rn, correctly rounded.
+//  * Distances go to shared memory, group by group; then one lane adds a
+//    group's ng distances in atom order, the same chain for every group
+//    wherever it sits and for any ng that divides K, so equal groups score
+//    equal bit for bit. The mean is the sum divided by ng; the lowest mean
+//    wins, the lower group at equal means. (Summing groups of a power of
+//    two in registers, by lane butterflies, measured no faster.)
+//  * Only the n_groups representative atoms (g*ng + ng/2) receive votes,
+//    so a block keeps (n_groups, M) sums and n_groups counts, not (K, M).
+//    The tile's rows are cut into 8 runs, one a vote warp, each warp adding
+//    its run in row order into its own copy of the sums, so codes that
+//    crowd into one group cost no more; the other 8 warps pack the words
+//    and count the codes meanwhile. One reduce launch adds the blocks'
+//    partials (the copies added in warp order) and writes the (R, K, M)
+//    and (R, K) outputs, zeros off the representatives.
+//
+// GSVQ that does not fit, or a VQ codebook too large to keep
+// (encode_kernel): one block owns
 // `bn` consecutive rows of one record (a multiple of lcm(32, S): whole
 // warps, whole positions, whole super-groups) and one thread a row:
 //  * The row's latent sits in registers (padded with zeros to MT, a
@@ -495,6 +531,447 @@ cudaError_t launch_resident(const float* z, const float* codebooks,
   return cudaGetLastError();
 }
 
+// ---- GSVQ, the slice tables resident: a tiled group search
+//
+// A tile's slice rows come in units of 32 rows of one slice (32 positions).
+// A pass takes two units, 64 rows; a warp scores one unit against a window
+// of 32 atoms of its slice, lane (ty, tx) = (lane / 8, lane % 8) the rows
+// ty + 4 i (i < 8) and the atoms tx + 8 j (j < 4), so each thread keeps 8 x
+// 4 cross products in registers (FP32 FMA, k in order) and each 16-byte
+// read of shared memory serves 8 lanes (a row) or 4 (an atom): a warp's
+// reads of 4 rows or 8 atoms are one wavefront each. 16 warps an SM, at
+// most 128 registers a thread.
+namespace gs {
+constexpr int kThreads = 512;
+constexpr int kTM = 8, kTN = 4;                   // rows, atoms a thread
+constexpr int kLY = 4, kLX = 8;                   // lanes along rows, atoms
+constexpr int kUnitRows = kLY * kTM;              // 32 rows of one slice
+constexpr int kWindow = kLX * kTN;                // 32 atoms a warp's task
+constexpr int kPassRows = 2 * kUnitRows;          // 64 slice rows a pass
+constexpr int kVoteWarps = 8;                     // warps that add votes
+constexpr size_t kBudget = (228 - 3) * 1024;      // one block an SM
+
+__host__ __device__ constexpr size_t align4(size_t n) {
+  return (n + 3) / 4 * 4;
+}
+
+// The tiled kernel's shapes and shared-memory regions (offsets in floats).
+struct Layout {
+  int S, K, M, m, ng, n_groups;
+  int BP;   // positions a tile: 32, or 64 at S = 1 (two units a tile)
+  int RS;   // a slice table row's floats: RS / 4 odd, so 8 lanes reading
+            // neighbouring rows' 16 bytes hit 8 distinct bank quads
+  int RSZ;  // a latent tile row's floats (M rounded up so RSZ / 4 is odd)
+  int GS;   // a group's floats in a score row: ng rounded up to odd, so
+            // the group sums of neighbouring lanes use distinct banks
+  int KS;   // a score row's floats, n_groups * GS
+  int TG;   // lanes that search one row's groups: pow2 >= n_groups, <= 32
+  unsigned zdiv;  // ceil(2^32 / S): u / S = umulhi(u, zdiv) for S > 1
+  size_t es, e2s, zt, sc, code, sums, cnt, col, total;
+};
+
+inline Layout layout(int K, int M, int S, int n_groups) {
+  Layout L{};
+  L.S = S;
+  L.K = K;
+  L.M = M;
+  L.m = M / S;
+  L.n_groups = n_groups;
+  L.ng = K / n_groups;
+  L.BP = S == 1 ? 2 * kUnitRows : kUnitRows;
+  L.RS = 4 * ((L.m / 4) | 1);
+  L.RSZ = 4 * ((M / 4) | 1);
+  L.GS = L.ng | 1;
+  L.KS = n_groups * L.GS;
+  L.TG = 1;
+  while (L.TG < n_groups && L.TG < 32) L.TG *= 2;
+  L.zdiv = S > 1 ? static_cast<unsigned>(((1ULL << 32) + S - 1) / S) : 0u;
+  size_t o = 0;
+  L.es = o;   o += align4(static_cast<size_t>(S) * K * L.RS);
+  L.e2s = o;  o += align4(static_cast<size_t>(S) * K);
+  L.zt = o;   o += align4(2 * static_cast<size_t>(L.BP) * L.RSZ);
+  L.sc = o;   o += align4(static_cast<size_t>(kPassRows) * L.KS);
+  L.code = o; o += align4(static_cast<size_t>(L.BP) * S);
+  L.sums = o; o += align4(static_cast<size_t>(kVoteWarps) * n_groups * M);
+  L.cnt = o;  o += align4(static_cast<size_t>(n_groups));
+  L.col = o;  o += align4(static_cast<size_t>(K));
+  L.total = o;
+  return L;
+}
+
+// Every slice table of one record: row s*K + a holds codebook row a's
+// columns [s*m, s*m + m); the RS - m floats past them are never read.
+__device__ __forceinline__ void stage_tables(float* es,
+                                             const float* __restrict__ cb,
+                                             const Layout& L, bool vec) {
+  const int w = vec ? 4 : 1, Q = L.m / w, n = L.S * L.K * Q;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int row = i / Q, q = i - row * Q;
+    const int s = row / L.K, a = row - s * L.K;
+    float* dst = es + static_cast<long long>(row) * L.RS + w * q;
+    const float* src = cb + static_cast<long long>(a) * L.M + s * L.m + w * q;
+    if (vec)
+      vq::cp_async16(dst, src, true);
+    else
+      vq::cp_async4(dst, src, true);
+  }
+}
+
+// Positions [p0, p0 + BP) of a record's (P, M) latents into rows of RSZ
+// floats; positions past P are zero-filled.
+__device__ __forceinline__ void stage_positions(float* dst,
+                                                const float* __restrict__ z,
+                                                long long p0,
+                                                const Layout& L, long long P,
+                                                bool vec) {
+  const int w = vec ? 4 : 1, Q = L.M / w, n = L.BP * Q;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int r = i / Q, q = i - r * Q;
+    const bool ok = p0 + r < P;
+    const float* src = ok ? z + (p0 + r) * L.M + w * q : z;
+    if (vec)
+      vq::cp_async16(dst + r * L.RSZ + w * q, src, ok);
+    else
+      vq::cp_async4(dst + r * L.RSZ + w * q, src, ok);
+  }
+}
+
+// One pass: slice rows [u0, u0 + 64) of the tile (slice-major: u = s*BP +
+// p; two units of 32 rows, the second absent past the tile) against every
+// atom of their slice, d = sqrt(max(z2 - 2 z.e + e2, 0) + 1e-12) in FP32.
+// Warp w takes the (unit, window) tasks w, w + 16, ... Each task first
+// takes its rows' ||z_s||^2: lane tx sums the 4-column chunks tx, tx + 8,
+// ... in order, then a fixed butterfly over the row's 8 lanes. Each distance
+// goes to its row's column col_s[a] of `sc`, for group_pass to add.
+__device__ __forceinline__ void score_pass(const float* zs, const float* es,
+                                           const float* e2s,
+                                           const int* col_s, float* sc,
+                                           const Layout& L, int u0) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ty = lane / kLX, tx = lane % kLX;
+  const int K = L.K, RSZ = L.RSZ, KS = L.KS, m4 = L.m / 4;
+  const int windows = (K + kWindow - 1) / kWindow;
+  const int units = min(2, (L.BP * L.S - u0) / kUnitRows);
+  for (int task = warp; task < units * windows; task += kThreads / 32) {
+    const int un = task / windows, a0 = (task - un * windows) * kWindow;
+    const int ub = u0 + un * kUnitRows;    // the unit's first row: one slice
+    const int s = ub / L.BP, pb = ub - s * L.BP;
+    const float* zp = zs + (pb + ty) * RSZ + s * L.m;   // row i: + 4 i RSZ
+    const float* et = es + static_cast<long long>(s) * K * L.RS;
+    float z2[kTM];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      const float4* zq = reinterpret_cast<const float4*>(zp + kLY * i * RSZ);
+      float acc = 0.f;
+      for (int q = tx; q < m4; q += kLX) {
+        const float4 v = zq[q];
+        acc = fmaf(v.x, v.x, acc);
+        acc = fmaf(v.y, v.y, acc);
+        acc = fmaf(v.z, v.z, acc);
+        acc = fmaf(v.w, v.w, acc);
+      }
+#pragma unroll
+      for (int o = 1; o < kLX; o <<= 1)
+        acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, o));
+      z2[i] = acc;
+    }
+    int eo[kTN];                            // atoms past K read atom K - 1
+#pragma unroll
+    for (int j = 0; j < kTN; ++j)
+      eo[j] = min(a0 + tx + kLX * j, K - 1) * L.RS;
+    float acc[kTM][kTN];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+#pragma unroll 1
+    for (int q = 0; q < m4; ++q) {
+      float4 ev[kTN];
+#pragma unroll
+      for (int j = 0; j < kTN; ++j)
+        ev[j] = reinterpret_cast<const float4*>(et + eo[j])[q];
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+        const float4 zv =
+            reinterpret_cast<const float4*>(zp + kLY * i * RSZ)[q];
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) {
+          acc[i][j] = fmaf(zv.x, ev[j].x, acc[i][j]);
+          acc[i][j] = fmaf(zv.y, ev[j].y, acc[i][j]);
+          acc[i][j] = fmaf(zv.z, ev[j].z, acc[i][j]);
+          acc[i][j] = fmaf(zv.w, ev[j].w, acc[i][j]);
+        }
+      }
+    }
+    float* srow = sc + (un * kUnitRows + ty) * KS;   // row i: + 4 i KS
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int a = a0 + tx + kLX * j;
+      const float e2 = e2s[s * K + min(a, K - 1)];
+      float d[kTM];
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+        // z2 - 2*cross in one rounding (2*cross is exact), then + e2; fmaxf
+        // drops a NaN, so x >= 1e-12
+        d[i] = __fadd_rn(
+            fmaxf(__fadd_rn(fmaf(-2.f, acc[i][j], z2[i]), e2), 0.f), 1e-12f);
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) d[i] = __fsqrt_rn(d[i]);
+      if (a < K) {
+        float* dst = srow + col_s[a];
+#pragma unroll
+        for (int i = 0; i < kTM; ++i) dst[kLY * i * KS] = d[i];
+      }
+    }
+  }
+}
+
+// The pass's rows' codes: TG lanes a row, lane l taking the groups g = l,
+// l + TG, ...: a group's ng distances added one by one in atom order (the
+// same chain for every group, so equal groups score equal bit for bit) and
+// divided by ng; kept by strict `<` in increasing g, then the lanes keep
+// the lowest mean, the lower group at equal means. Codes go to the tile's
+// position-major slots (pad positions pack as 0).
+__device__ __forceinline__ void group_pass(const float* sc, int* code_s,
+                                           const Layout& L, int u0,
+                                           int n_valid_pos) {
+  const int TG = L.TG, gl = threadIdx.x % TG, step = kThreads / TG;
+  const float fng = static_cast<float>(L.ng);
+  // 32 or 64 rows: a multiple of a warp's 32 / TG rows, so whole warps stop
+  const int n_rows = min(kPassRows, L.BP * L.S - u0);
+  for (int row = threadIdx.x / TG; row < n_rows; row += step) {
+    float best = INFINITY;
+    int code = 0;
+    for (int g = gl; g < L.n_groups; g += TG) {
+      const float* src = sc + row * L.KS + g * L.GS;
+      float sum = 0.f;
+#pragma unroll 4
+      for (int i = 0; i < L.ng; ++i) sum = __fadd_rn(sum, src[i]);
+      const float gd = __fdiv_rn(sum, fng);
+      if (gd < best) {
+        best = gd;
+        code = g;
+      }
+    }
+    for (int o = TG / 2; o > 0; o >>= 1)
+      vq::take_lower(best, code, __shfl_xor_sync(0xffffffffu, best, o),
+                     __shfl_xor_sync(0xffffffffu, code, o));
+    if (gl == 0) {
+      const int u = u0 + row, s = u / L.BP, p = u - s * L.BP;
+      code_s[p * L.S + s] = p < n_valid_pos ? code : 0;
+    }
+  }
+}
+
+// A tile's votes: slice row u (of position u / S) votes its position's
+// full latent onto its group. The tile's rows are cut into kVoteWarps
+// contiguous runs; warp w adds its run, in row order, into its own copy of
+// the (n_groups, M) sums, two columns a lane, B rows a shared-memory round
+// trip (a row whose group an earlier row of the B shares adds to that row's
+// running value, as add_votes does). So every warp has the same number of
+// rows, however the codes crowd, and no two warps touch one sum.
+__device__ __forceinline__ void add_votes(const int* code_s, const float* zs,
+                                          float* vsum, int n_valid,
+                                          const Layout& L) {
+  constexpr int B = 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, M = L.M;
+  float* sums = vsum + static_cast<long long>(warp) * L.n_groups * M;
+  const int hi = n_valid * (warp + 1) / kVoteWarps;
+  for (int u0 = n_valid * warp / kVoteWarps; u0 < hi; u0 += B) {
+    int k[B];
+    const float* zr[B];
+#pragma unroll
+    for (int i = 0; i < B; ++i) {
+      const bool on = u0 + i < hi;
+      const unsigned u = on ? u0 + i : 0;
+      k[i] = on ? code_s[u] : -1 - i;
+      zr[i] = zs + (L.S > 1 ? __umulhi(u, L.zdiv) : u) * L.RSZ;
+    }
+    for (int c = 2 * lane; c < M; c += 64) {
+      float2 v[B], t[B];
+#pragma unroll
+      for (int i = 0; i < B; ++i) {
+        v[i] = *reinterpret_cast<const float2*>(zr[i] + c);
+        t[i] = k[i] >= 0 ? *reinterpret_cast<const float2*>(sums + k[i] * M
+                                                            + c)
+                         : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+      for (int i = 0; i < B; ++i) {
+        float2 run = t[i];
+#pragma unroll
+        for (int p = 0; p < i; ++p)
+          if (k[p] == k[i]) run = t[p];   // the latest earlier row's value
+        t[i] = make_float2(__fadd_rn(run.x, v[i].x), __fadd_rn(run.y, v[i].y));
+      }
+#pragma unroll
+      for (int i = 0; i < B; ++i)
+        if (k[i] >= 0) *reinterpret_cast<float2*>(sums + k[i] * M + c) = t[i];
+    }
+  }
+}
+
+}  // namespace gs
+
+__global__ void __launch_bounds__(gs::kThreads, 1)
+    gsvq_tiled_kernel(const float* __restrict__ z,
+                      const float* __restrict__ codebooks,
+                      uint32_t* __restrict__ words, int* __restrict__ pcounts,
+                      float* __restrict__ psums, gs::Layout L, int P,
+                      int bits, int nW, int tiles, bool vec) {
+  using namespace gs;
+  extern __shared__ __align__(16) float smem[];
+  float* es = smem + L.es;                 // (S*K, RS) slice tables
+  float* e2s = smem + L.e2s;               // (S*K,) their norms
+  float* zt = smem + L.zt;                 // 2 x (BP, RSZ) latent tiles
+  float* sc = smem + L.sc;                 // (64, KS) a pass's distances
+  int* code_s = reinterpret_cast<int*>(smem + L.code);   // (BP*S,)
+  float* vsum = smem + L.sums;             // kVoteWarps x (n_groups, M)
+  int* cnt_s = reinterpret_cast<int*>(smem + L.cnt);     // (n_groups,)
+  int* col_s = reinterpret_cast<int*>(smem + L.col);     // (K,) score column
+  const int r = blockIdx.y, tid = threadIdx.x;
+  const int rows = L.BP * L.S, M = L.M;
+  const float* zr = z + static_cast<long long>(r) * P * M;
+  const int G = group_codes(bits), W = group_words(bits), gpt = rows / G;
+  // pack and counts run on the warps past the vote warps' while they vote
+  const int aux = tid - 32 * kVoteWarps, n_aux = kThreads - 32 * kVoteWarps;
+
+  for (int e = tid; e < kVoteWarps * L.n_groups * M; e += kThreads)
+    vsum[e] = 0.f;
+  for (int g = tid; g < L.n_groups; g += kThreads) cnt_s[g] = 0;
+  for (int a = tid; a < L.K; a += kThreads)   // g*GS + a - g*ng, g = a / ng
+    col_s[a] = L.GS == L.ng ? a : a + a / L.ng;
+  stage_tables(es, codebooks + static_cast<long long>(r) * L.K * M, L, vec);
+  stage_positions(zt, zr, static_cast<long long>(blockIdx.x) * L.BP, L, P,
+                  vec);
+  vq::cp_async_commit();
+  // three barriers a tile: (1) this tile's latents have landed, and the
+  // last tile's votes are done with its latents and codes; (2) the scores
+  // are in `sc`; (3) the codes are in `code_s`
+  for (int t = blockIdx.x, n = 0; t < tiles; t += gridDim.x, ++n) {
+    const long long p0 = static_cast<long long>(t) * L.BP;
+    const float* zs = zt + (n & 1) * L.BP * L.RSZ;
+    vq::cp_async_wait<0>();                 // this tile (and the tables)
+    __syncthreads();
+    if (t + static_cast<int>(gridDim.x) < tiles) {   // the next tile lands
+      stage_positions(zt + ((n + 1) & 1) * L.BP * L.RSZ, zr,  // meanwhile
+                      p0 + static_cast<long long>(gridDim.x) * L.BP, L, P,
+                      vec);
+      vq::cp_async_commit();
+    }
+    if (n == 0) {                           // ||e||^2, once a block
+      for (int row = tid; row < L.S * L.K; row += kThreads) {
+        const float4* e =
+            reinterpret_cast<const float4*>(es + static_cast<long long>(row)
+                                                     * L.RS);
+        float acc = 0.f;
+        for (int q = 0; q < L.m / 4; ++q) {
+          const float4 v = e[q];
+          acc = fmaf(v.x, v.x, acc);
+          acc = fmaf(v.y, v.y, acc);
+          acc = fmaf(v.z, v.z, acc);
+          acc = fmaf(v.w, v.w, acc);
+        }
+        e2s[row] = acc;
+      }
+      __syncthreads();
+    }
+    const int n_valid_pos = static_cast<int>(
+        min(static_cast<long long>(L.BP), P - p0));
+    for (int u0 = 0; u0 < rows; u0 += kPassRows) {
+      if (u0 > 0) __syncthreads();          // the last pass's `sc` is read
+      score_pass(zs, es, e2s, col_s, sc, L, u0);
+      __syncthreads();
+      group_pass(sc, code_s, L, u0, n_valid_pos);
+    }
+    __syncthreads();
+    const int n_valid = n_valid_pos * L.S;
+    if (aux >= 0) {
+      // pack: the tile's whole super-groups, a thread a word
+      for (int wi = aux; wi < gpt * W; wi += n_aux) {
+        const int gi = wi / W;
+        const long long g = static_cast<long long>(t) * gpt + gi;
+        if (g < nW)
+          words[(static_cast<long long>(r) * nW + g) * W + (wi - gi * W)] =
+              pack_word(code_s + gi * G, bits, G, wi - gi * W);
+      }
+      // counts: a warp's rows of one code add once, by their lowest lane
+      for (int u0 = aux & ~31; u0 < n_valid; u0 += n_aux) {
+        const int u = u0 + (tid & 31);
+        const int k = u < n_valid ? code_s[u] : -1;
+        const unsigned peers = __match_any_sync(0xffffffffu, k);
+        if (k >= 0 && (tid & 31) == __ffs(peers) - 1)
+          atomicAdd(&cnt_s[k], __popc(peers));
+      }
+    } else {
+      // statistics from the z tile in shared memory, each sum in row order
+      gs::add_votes(code_s, zs, vsum, n_valid, L);
+    }
+  }
+  // the block's partial: the vote warps' copies added in warp order
+  __syncthreads();
+  const long long part = static_cast<long long>(r) * gridDim.x + blockIdx.x;
+  const int n_sums = L.n_groups * M;
+  for (int e = tid; e < n_sums; e += kThreads) {
+    float acc = vsum[e];
+#pragma unroll
+    for (int w = 1; w < kVoteWarps; ++w)
+      acc = __fadd_rn(acc, vsum[w * n_sums + e]);
+    psums[part * n_sums + e] = acc;
+  }
+  for (int g = tid; g < L.n_groups; g += kThreads)
+    pcounts[part * L.n_groups + g] = cnt_s[g];
+}
+
+// out[r, k, c] for the 32 outputs of block `blk` from the (R, NB, n_groups,
+// C) partials: atom k = g*ng + ng/2 (group g's representative) takes group
+// g's sum over blocks, in reduce_block's fixed order; every other atom 0.
+template <typename T>
+__device__ __forceinline__ void reduce_rep_block(const T* __restrict__ part,
+                                                 float* __restrict__ out,
+                                                 int R, int NB, int K, int ng,
+                                                 int C, long long blk) {
+  __shared__ T seg_s[kSegments][32];
+  const int lane = threadIdx.x & 31, seg = threadIdx.x >> 5;
+  const long long n_out = static_cast<long long>(K) * C;
+  const long long idx = blk * 32 + lane;
+  const bool ok = idx < R * n_out;
+  T acc = 0;
+  if (ok) {
+    const long long r = idx / n_out, e = idx - r * n_out;
+    const int k = static_cast<int>(e / C);
+    const int c = static_cast<int>(e - static_cast<long long>(k) * C);
+    if (k % ng == ng / 2) {
+      const long long n = static_cast<long long>(K / ng) * C;
+      const T* src = part + r * NB * n + static_cast<long long>(k / ng) * C
+                     + c;
+      for (int bb = seg; bb < NB; bb += kSegments)
+        acc += src[static_cast<long long>(bb) * n];
+    }
+  }
+  seg_s[seg][lane] = acc;
+  __syncthreads();
+  if (seg == 0 && ok) {
+    T total = 0;
+    for (int q = 0; q < kSegments; ++q) total += seg_s[q][lane];
+    out[idx] = static_cast<float>(total);
+  }
+}
+
+// The GSVQ path's one reduce launch: blocks below `sum_blocks` write the
+// (R, K, M) sums, the rest the (R, K) counts.
+__global__ void reduce_reps(const float* __restrict__ psums,
+                            const int* __restrict__ pcounts,
+                            float* __restrict__ sums,
+                            float* __restrict__ counts, int R, int NB, int K,
+                            int M, int ng, unsigned sum_blocks) {
+  if (blockIdx.x < sum_blocks)
+    reduce_rep_block(psums, sums, R, NB, K, ng, M, blockIdx.x);
+  else
+    reduce_rep_block(pcounts, counts, R, NB, K, ng, 1,
+                     blockIdx.x - sum_blocks);
+}
+
 template <int MT, bool GSVQ>
 cudaError_t launch_encode(dim3 grid, int threads, size_t smem,
                           cudaStream_t st, const float* z, const float* table,
@@ -619,5 +1096,52 @@ extern "C" int rt_encode_codes_resident(const float* z,
       static_cast<unsigned>((static_cast<long long>(R) * K + 31) / 32);
   reduce_stats<<<sum_blocks + cnt_blocks, 32 * kSegments, 0, st>>>(
       psums, pcounts, sums, counts, R, nb, K, M, sum_blocks);
+  return cudaGetLastError();
+}
+
+// The GSVQ path with every slice table resident. z (R, P, M) and codebooks
+// (R, K, M), contiguous float32, S slices of width m = M / S (m % 4 == 0, m
+// <= 64), n_groups groups of ng = K / n_groups atoms -> words (R*nW, W) of
+// the position-major slice codes, counts (R, K), sums (R, K, M). `nb`
+// blocks a record, each walking its record's tiles of BP positions;
+// pcounts (R, nb, n_groups) int32 and psums (R, nb, n_groups, M) are
+// scratch. Refuses shapes whose shared memory passes one block an SM.
+extern "C" int rt_encode_codes_gsvq(const float* z, const float* codebooks,
+                                    int* words, float* counts, float* sums,
+                                    int* pcounts, float* psums, int R, int P,
+                                    int K, int M, int S, int n_groups,
+                                    int bits, int nb, int device,
+                                    void* stream) {
+  if (R < 1 || R > 65535 || P < 1 || K < 1 || M < 1 || S < 1 ||
+      n_groups < 1 || (S == 1 && n_groups == 1) || M % S != 0 ||
+      K % n_groups != 0 || (M / S) % 4 != 0 || M / S > 64 || bits < 1 ||
+      bits > 32 || nb < 1)
+    return cudaErrorInvalidValue;
+  const gs::Layout L = gs::layout(K, M, S, n_groups);
+  const int tiles = (P + L.BP - 1) / L.BP;
+  if (nb > tiles) return cudaErrorInvalidValue;
+  const size_t smem = L.total * sizeof(float);
+  if (smem > gs::kBudget) return cudaErrorInvalidConfiguration;
+  cudaError_t err = rt::use_device(device);
+  if (err != cudaSuccess) return err;
+  constexpr auto kernel = gsvq_tiled_kernel;
+  err = rt::allow_smem<kernel>(device, gs::kBudget);
+  if (err != cudaSuccess) return err;
+  const int nW = static_cast<int>(
+      (static_cast<long long>(P) * S + group_codes(bits) - 1) /
+      group_codes(bits));
+  const bool vec = vq::aligned16(z) && vq::aligned16(codebooks);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kernel<<<dim3(nb, R), gs::kThreads, smem, st>>>(
+      z, codebooks, reinterpret_cast<uint32_t*>(words), pcounts, psums, L, P,
+      bits, nW, tiles, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long n_sums = static_cast<long long>(R) * K * M;
+  const unsigned sum_blocks = static_cast<unsigned>((n_sums + 31) / 32);
+  const unsigned cnt_blocks =
+      static_cast<unsigned>((static_cast<long long>(R) * K + 31) / 32);
+  reduce_reps<<<sum_blocks + cnt_blocks, 32 * kSegments, 0, st>>>(
+      psums, pcounts, sums, counts, R, nb, K, M, L.ng, sum_blocks);
   return cudaGetLastError();
 }

@@ -7,11 +7,14 @@ counts and latents of Eq. 7-8, so the Step 5 refresh needs no second
 encoder pass. The kernels are ``csrc/encode_codes.cu``; their plain
 version is :func:`repro_torch.kernels.ref.encode_codes_ref`.
 
-The wrapper picks one of two kernels from the shapes (:func:`encode_path`):
-``"resident"`` for plain VQ whose codebook stays in shared memory (every
-DVQ-AE config's uplink), on ``vq_nn.cu``'s search, so its codes equal
-:func:`~repro_torch.kernels.vq_nn.vq_nearest_cuda`'s; ``"thread_per_row"``
-for GSVQ and codebooks too large to keep.
+The wrapper picks one of three kernels from the shapes
+(:func:`encode_path`): ``"resident"`` for plain VQ whose codebook stays in
+shared memory (every DVQ-AE config's uplink), on ``vq_nn.cu``'s search, so
+its codes equal :func:`~repro_torch.kernels.vq_nn.vq_nearest_cuda`'s;
+``"gsvq_tiled"`` for GSVQ whose slice tables stay in shared memory (the
+speech config's 3-bit uplink), a register-tiled FP32 group search;
+``"thread_per_row"`` for the rest (larger tables, slice widths past 64 or
+not a multiple of 4).
 """
 from __future__ import annotations
 
@@ -28,9 +31,13 @@ from .pack_bits import _require_cuda, packing_dims
 BLOCK_ROWS = 256
 #: rows of a tile of the resident kernel, and atoms of its sub-tile
 TILE_ROWS = TILE_ATOMS = 128
-#: shared memory the resident kernel may take: one block an SM, the SM's
-#: 228 KB less 3 KB (a block's reserved 1 KB and static arrays)
+#: shared memory the resident and tiled GSVQ kernels may take: one block an
+#: SM, the SM's 228 KB less 3 KB (a block's reserved 1 KB and static arrays)
 RESIDENT_BUDGET = (228 - 3) * 1024
+#: slice rows of a pass of the tiled GSVQ kernel: two units of 32
+GSVQ_PASS_ROWS = 64
+#: warps of the tiled GSVQ kernel that add votes, each into its own sums
+GSVQ_VOTE_WARPS = 8
 
 
 def stacked_slice_table(codebooks: torch.Tensor, *,
@@ -66,14 +73,46 @@ def resident_bytes(K: int, M: int) -> int:
                 + K * M + K)
 
 
+def gsvq_tile_positions(n_slices: int) -> int:
+    """Positions of a tile of the tiled GSVQ kernel: 32, so a slice's rows
+    of the tile are one unit of 32 (64 at one slice: two units a tile)."""
+    return 64 if n_slices == 1 else 32
+
+
+def gsvq_bytes(K: int, M: int, *, n_groups: int, n_slices: int) -> int:
+    """Shared memory of the tiled GSVQ kernel: the S slice tables in rows of
+    RS floats (RS / 4 odd) with their norms, two (BP, M) latent tiles in
+    rows of RSZ floats (RSZ / 4 odd), a pass's distances (64 rows of
+    n_groups groups of ng floats rounded up to odd), the tile's codes, the
+    vote warps' copies of the (n_groups, M) sums, n_groups counts and each
+    atom's score column, each region a multiple of 4 floats. The same sum as
+    ``gs::layout`` in ``csrc/encode_codes.cu``, whose entry refuses a launch
+    that does not fit."""
+    S, m, ng = n_slices, M // n_slices, K // n_groups
+    BP = gsvq_tile_positions(S)
+    RS, RSZ = 4 * ((m // 4) | 1), 4 * ((M // 4) | 1)
+    KS = n_groups * (ng | 1)
+    regions = (S * K * RS, S * K, 2 * BP * RSZ, GSVQ_PASS_ROWS * KS, BP * S,
+               GSVQ_VOTE_WARPS * n_groups * M, n_groups, K)
+    return 4 * sum(-(-n // 4) * 4 for n in regions)
+
+
 def encode_path(K: int, M: int, *, n_groups: int = 1,
                 n_slices: int = 1) -> str:
     """The kernel that encodes K atoms of width M: ``"resident"`` for plain
     VQ whose codebook, two z tiles and (K, M) sums fit one block an SM
     (K <= 256 at M = 64) and whose width is at most 32 or even (a lane adds
-    two aligned columns past 32), ``"thread_per_row"`` else."""
-    if n_groups > 1 or n_slices > 1 or M > 64 or (M > 32 and M % 2) \
-            or resident_bytes(K, M) > RESIDENT_BUDGET:
+    two aligned columns past 32); ``"gsvq_tiled"`` for GSVQ with slice
+    widths m <= 64, m % 4 == 0, whose tables and tiles fit one block an SM
+    (:func:`gsvq_bytes`); ``"thread_per_row"`` else."""
+    if n_groups > 1 or n_slices > 1:
+        m = M // n_slices
+        if M % n_slices or K % n_groups or m % 4 or m > 64 \
+                or gsvq_bytes(K, M, n_groups=n_groups, n_slices=n_slices) \
+                > RESIDENT_BUDGET:
+            return "thread_per_row"
+        return "gsvq_tiled"
+    if M > 64 or (M > 32 and M % 2) or resident_bytes(K, M) > RESIDENT_BUDGET:
         return "thread_per_row"
     return "resident"
 
@@ -81,6 +120,13 @@ def encode_path(K: int, M: int, *, n_groups: int = 1,
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def gsvq_blocks(R: int, P: int, n_slices: int, index: int) -> int:
+    """Blocks a record of the tiled GSVQ kernel: one an SM, spread over the
+    records, each walking its record's tiles; no more than the tiles."""
+    tiles = -(-P // gsvq_tile_positions(n_slices))
+    return min(tiles, max(1, _sm_count(index) // R))
 
 
 def encode_codes_cuda(z: torch.Tensor, codebooks: torch.Tensor, *,
@@ -120,7 +166,22 @@ def encode_codes_cuda(z: torch.Tensor, codebooks: torch.Tensor, *,
     sums = torch.empty((R, K, M), dtype=torch.float32, device=dev)
     if Pn == 0 or R == 0:
         return words, counts.zero_(), sums.zero_()
-    if encode_path(K, M, n_groups=n_groups, n_slices=n_slices) == "resident":
+    path = encode_path(K, M, n_groups=n_groups, n_slices=n_slices)
+    if path == "gsvq_tiled":
+        # the slice tables resident, one block an SM, each walking its
+        # record's tiles; one (n_groups, M) partial a block
+        nb = gsvq_blocks(R, P, S, dev.index)
+        pcounts = torch.empty((R, nb, n_groups), dtype=torch.int32,
+                              device=dev)
+        psums = torch.empty((R, nb, n_groups, M), dtype=torch.float32,
+                            device=dev)
+        _build.check(_build.library().rt_encode_codes_gsvq(
+            z.data_ptr(), codebooks.data_ptr(), words.data_ptr(),
+            counts.data_ptr(), sums.data_ptr(), pcounts.data_ptr(),
+            psums.data_ptr(), R, P, K, M, S, n_groups, bits, nb, dev.index,
+            _build.stream_of(z)), "encode_codes")
+        return words, counts, sums
+    if path == "resident":
         # one block an SM, spread over the records, each walking its
         # record's row tiles; one partial a block
         nb = min(-(-P // TILE_ROWS), max(1, _sm_count(dev.index) // R))

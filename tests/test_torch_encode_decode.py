@@ -26,10 +26,9 @@ from repro_torch.core.dvqae import DVQAEConfig  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.decode_codes import (decode_codes_cuda,  # noqa: E402
                                               stream_phases)
-from repro_torch.kernels.encode_codes import (RESIDENT_BUDGET,  # noqa: E402
-                                              encode_codes_cuda, encode_path,
-                                              resident_bytes,
-                                              stacked_slice_table)
+from repro_torch.kernels.encode_codes import (  # noqa: E402
+    GSVQ_PASS_ROWS, RESIDENT_BUDGET, encode_codes_cuda, encode_path,
+    gsvq_bytes, gsvq_tile_positions, resident_bytes, stacked_slice_table)
 from repro_torch.kernels.pack_bits import code_bits, packing_dims  # noqa: E402
 from repro_torch.kernels.vq_nn import vq_nearest_cuda  # noqa: E402
 
@@ -64,6 +63,7 @@ def ref_scores64(z, cb, n_groups, n_slices):
 ENCODE_CASES = {
     "vq_k256": (1, 1, 1, 3, 50, 16, 256, ()),
     "gsvq_g16s4": (16, 16, 4, 3, 50, 16, 256, ()),
+    "gsvq_g8s2_speech": (17, 8, 2, 1, 40, 64, 256, ()),
     "vq_r2_p129_k100_m48": (2, 1, 1, 2, 129, 48, 100, ()),
     "vq_duplicated_atoms": (3, 1, 1, 2, 129, 64, 256,
                             ((15, 16), (63, 64), (127, 128), (0, 255))),
@@ -144,16 +144,58 @@ def test_plain_encode_codes_are_the_vq_search(case):
 
 def test_encode_path_follows_the_shapes():
     """Plain VQ whose codebook, z tiles and sums fit one block an SM takes
-    the resident kernel; GSVQ, wider atoms and larger codebooks keep the
-    thread-per-row kernel."""
+    the resident kernel; GSVQ whose slice tables fit, with slice widths up
+    to 64 and a multiple of 4, the tiled GSVQ kernel; wider atoms, larger
+    codebooks and tables keep the thread-per-row kernel."""
     assert encode_path(256, 64) == "resident"       # DVQAEConfig()
     assert resident_bytes(256, 64) == 207_360 <= RESIDENT_BUDGET
     for K, M in ((2, 64), (100, 48), (256, 16), (1024, 16), (1, 1)):
         assert encode_path(K, M) == "resident", (K, M)
     for K, M in ((512, 64), (257, 64), (256, 65), (2048, 16), (100, 33)):
         assert encode_path(K, M) == "thread_per_row", (K, M)
-    assert encode_path(256, 64, n_groups=16, n_slices=4) == "thread_per_row"
-    assert encode_path(256, 48, n_groups=32, n_slices=3) == "thread_per_row"
+    # (K, M, n_groups, n_slices): the speech config's g8s2, g16s4, 5 bits
+    # over 3 slices, groups of 1, 24 and 128 atoms, one slice of width 64
+    for K, M, g, S in ((256, 64, 8, 2), (256, 64, 16, 4), (256, 48, 32, 3),
+                       (64, 64, 64, 2), (96, 64, 4, 2), (256, 64, 2, 2),
+                       (256, 64, 8, 1)):
+        assert encode_path(K, M, n_groups=g, n_slices=S) == "gsvq_tiled", \
+            (K, M, g, S)
+    # tables past the budget, slice widths past 64 or not a multiple of 4
+    for K, M, g, S in ((512, 64, 16, 2), (256, 128, 8, 2), (256, 256, 8, 2),
+                       (256, 6, 2, 2), (256, 40, 8, 4)):
+        assert encode_path(K, M, n_groups=g, n_slices=S) \
+            == "thread_per_row", (K, M, g, S)
+
+
+def test_gsvq_bytes_is_the_kernel_budget():
+    """gsvq_bytes sums the tiled GSVQ kernel's shared-memory regions as
+    gs::layout does, and encode_path takes exactly the GSVQ shapes whose sum
+    fits the one-block-an-SM budget; a tile is whole units of 32 slice rows
+    of one slice, at least one pass of 64, whole super-groups at any
+    width."""
+    # speech g8s2: tables 512 rows x 36, norms 512, two 32 x 68 latent
+    # tiles, 64 x (8 groups x 33) distances, 64 codes, 8 vote warps' 8 x 64
+    # sums, 8 counts, 256 score columns
+    assert gsvq_bytes(256, 64, n_groups=8, n_slices=2) == 4 * (
+        512 * 36 + 512 + 2 * 32 * 68 + 64 * 8 * 33 + 64 + 8 * 8 * 64 + 8
+        + 256) == 178_464
+    # rows of a multiple of 8 floats get 4 more (RS / 4 and RSZ / 4 odd);
+    # odd group sizes need no pad; regions round up to 4 floats
+    assert gsvq_bytes(96, 60, n_groups=32, n_slices=5) == 4 * (
+        5 * 96 * 12 + 5 * 96 + 2 * 32 * 60 + 64 * 32 * 3 + 160
+        + 8 * 32 * 60 + 32 + 96)
+    for S in range(1, 40):
+        BP = gsvq_tile_positions(S)
+        assert BP % 32 == 0 and BP * S >= GSVQ_PASS_ROWS, S
+        assert all(BP * S % (32 // np.gcd(b, 32)) == 0
+                   for b in range(1, 33)), S
+    for K, M, g, S in ((256, 64, 8, 2), (512, 64, 8, 2), (256, 128, 8, 2),
+                       (384, 64, 8, 2), (512, 32, 32, 2), (1024, 16, 8, 1),
+                       (256, 64, 256, 1), (768, 32, 8, 4)):
+        fits = gsvq_bytes(K, M, n_groups=g, n_slices=S) <= RESIDENT_BUDGET
+        assert (encode_path(K, M, n_groups=g, n_slices=S)
+                == "gsvq_tiled") == fits, (K, M, g, S)
+
 
 def test_stacked_slice_table_matches_reference():
     cb = np.random.default_rng(3).standard_normal((2, 8, 12)) \

@@ -184,6 +184,50 @@ def test_merge_stats_interoperate_both_ways():
     same_stats(mixed, jema.merge_stats(cbs, cts))
 
 
+@pytest.mark.parametrize("form", ["stacked", "list"])
+@pytest.mark.parametrize("decay", [None, 0.9])
+def test_merge_entry_points_take_numpy_as_the_reference_does(form, decay):
+    """The same numpy arrays, stacked or as per-client lists, through both
+    packages' five Step 5 entry points; the reference's numpy MergeStats
+    through the port. Totals and the fixed-point codebook bit-exact, the
+    float merge within FLOAT_RTOL."""
+    cbs, cts = population(14)
+    cur = np.random.default_rng(15).standard_normal((K, M)).astype(np.float32)
+    kw = {} if decay is None else dict(
+        staleness=np.array([1, 0, 3, 2, 0, 1, 2]), staleness_decay=decay)
+    cin, win = (cbs, cts) if form == "stacked" else (list(cbs), list(cts))
+    js = jema.merge_stats(cin, win, **kw)
+    ts = ema.merge_stats(cin, win, device="cpu", **kw)
+    same_stats(ts, js)
+    # the reference's numpy int64 MergeStats, alone and folded with the
+    # port's, and two numpy ones
+    half = jema.merge_stats(cbs[:3], cts[:3])
+    rest = jema.merge_stats(cbs[3:], cts[3:])
+    one_shot = jema.merge_stats(cbs, cts)
+    same_stats(ema.merge_stats_add(half, ema.merge_stats(
+        list(cbs[3:]), list(cts[3:]), device="cpu")), one_shot)
+    same_stats(ema.merge_stats_add(half, rest, device="cpu"), one_shot)
+    for cur_in, kw_dev in ((t(cur), {}), (cur, dict(device="cpu"))):
+        got = ema.merge_codebook(js, cur_in, **kw_dev)
+        assert got.dtype == torch.float32 and got.device.type == "cpu"
+        np.testing.assert_array_equal(got.numpy(),
+                                      jema.merge_codebook(js, cur))
+    np.testing.assert_array_equal(
+        OC.server_merge_stats(t_server(cur), js).params["codebook"].numpy(),
+        np.asarray(JOC.server_merge_stats(j_server(cur), js)
+                   .params["codebook"]))
+    want = np.asarray(JOC.server_merge_codebooks(
+        j_server(cur), cin, win, **kw).params["codebook"])
+    got = OC.server_merge_codebooks(t_server(cur), cin, win, **kw) \
+        .params["codebook"]
+    assert got.dtype == torch.float32
+    assert_close(got.numpy(), want, np.abs(cbs).max())
+    if form == "list":           # a list of tensors merges the same
+        tl = OC.server_merge_codebooks(t_server(cur), [t(c) for c in cbs],
+                                       [t(c) for c in cts], **kw)
+        assert torch.equal(tl.params["codebook"], got)
+
+
 # ------------------------------------------------------------ float merge
 
 @pytest.mark.parametrize("stacked", [True, False])
@@ -373,3 +417,27 @@ def test_merge_entry_points_need_an_explicit_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ema.merge_stats_zero(K, M)
     assert ema.merge_stats_zero(K, M, device="cpu").num.device.type == "cpu"
+
+
+def test_numpy_merge_inputs_go_to_the_card_unless_told():
+    """Numpy inputs carry no device: merge_stats, merge_stats_add and
+    merge_codebook put them on cuda unless given device="cpu" (and refuse
+    without a GPU); tensors keep their own."""
+    cbs, cts = population(16)
+    js = jema.merge_stats(cbs, cts)
+    cur = cbs[0]
+    if torch.cuda.is_available():
+        assert ema.merge_stats(cbs, cts).num.device.type == "cuda"
+        assert ema.merge_stats_add(js, js).den.device.type == "cuda"
+        assert ema.merge_codebook(js, cur).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ema.merge_stats(cbs, cts)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ema.merge_stats_add(js, js)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ema.merge_codebook(js, cur)
+    assert ema.merge_stats(t(cbs), t(cts)).num.device.type == "cpu"
+    assert ema.merge_stats_add(js, js, device="cpu").den.device.type == "cpu"
+    assert ema.merge_codebook(js, t(cur)).device.type == "cpu"
+    assert ema.merge_codebook(js, cur, device="cpu").device.type == "cpu"

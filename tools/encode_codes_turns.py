@@ -2,27 +2,31 @@
 """Time the ``encode_codes`` CUDA kernels of several checkouts in turns, on
 one NVIDIA GPU.
 
-    python3 tools/encode_codes_turns.py [LABEL=DIR ...]
+    python3 tools/encode_codes_turns.py [--only vq|gsvq] [LABEL=DIR ...]
 
 Each DIR is the root of a checkout of this repository (``this`` = the
 checkout that holds this script, the default). Its
 ``src/repro_torch/kernels/csrc/encode_codes.cu`` is built alone by nvcc into
 ``build/encode_turns/LABEL.so`` (plain C interface, loaded with ctypes), so
 two versions of the kernel run side by side in one process. Each is called
-as its own checkout's wrapper calls it at plain VQ: through
-``rt_encode_codes_resident`` where the library has it and the codebook fits
-(``encode_path``), else through ``rt_encode_codes`` (one thread a row,
-256-row blocks), with its scratch allocated once. At a full-width client
-batch (1, 65,536, 64) x (1, 256, 64), at the train phase's largest
-transmit (the 160 test images, (1, 10,240, 64)) and at 8 clients'
-(8, 65,536, 64) x (8, 256, 64), 8 bits: each kernel's codes are held
-against the plain version (``repro_torch.kernels.ref``, near-tie rule) and
-its words against the packing of its own codes; then the kernels are timed
-by CUDA events in turns (first, second, ..., second, first, in every
-trial), the plain version beside them, and each kernel's device time is read
-from ``torch.profiler``, in all and split by kernel name. Prints the card's
-name and power limit, one JSON line, and exits non-zero without a GPU or on
-a disagreement.
+as its own checkout's wrapper calls it: through ``rt_encode_codes_resident``
+(plain VQ whose codebook fits) or ``rt_encode_codes_gsvq`` (GSVQ whose slice
+tables fit) where the library has the entry and ``encode_path`` picks it,
+else through ``rt_encode_codes`` (one thread a row, 256-row blocks, on the
+slice-stacked table), with its scratch allocated once.
+
+Shapes (``--only`` picks one set): plain VQ at 8 bits, a full-width client
+batch (1, 65,536, 64) x (1, 256, 64), the train phase's largest transmit
+(1, 10,240, 64) and 8 clients' (8, 65,536, 64) x (8, 256, 64); GSVQ g8s2 (8
+groups, 2 slices, K 256, M 64, 3 bits) at the speech transmit's (1, 7,680,
+64) and at (1, 65,536, 64). Each kernel's codes are held against the plain
+version (``repro_torch.kernels.ref``, near-tie rule) and its words, counts
+and sums against the packing and statistics of its own codes; then the
+kernels are timed by CUDA events in turns (first, second, ..., second,
+first, in every trial), the plain version beside them, and each kernel's
+device time is read from ``torch.profiler``, in all and split by kernel
+name. Prints the card's name and power limit, one JSON line a shape and one
+in all, and exits non-zero without a GPU or on a disagreement.
 """
 from __future__ import annotations
 
@@ -37,8 +41,10 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 import chip_smoke  # noqa: E402  (its timing helpers; it imports no torch)
 
 BUILD = ROOT / "build" / "encode_turns"
-SHAPES = ((1, 65536, 256, 64), (1, 10240, 256, 64), (8, 65536, 256, 64))
-BITS = 8
+#: (R, P, K, M, n_groups, n_slices, bits)
+VQ_SHAPES = ((1, 65536, 256, 64, 1, 1, 8), (1, 10240, 256, 64, 1, 1, 8),
+             (8, 65536, 256, 64, 1, 1, 8))
+GSVQ_SHAPES = ((1, 7680, 256, 64, 8, 2, 3), (1, 65536, 256, 64, 8, 2, 3))
 PROFILE_REPS = 20
 
 
@@ -54,7 +60,8 @@ def build(label: str, tree: Path):
     if res.returncode:
         raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}{res.stderr}")
     lib = ctypes.CDLL(str(so))
-    for name in ("rt_encode_codes", "rt_encode_codes_resident"):
+    for name in ("rt_encode_codes", "rt_encode_codes_resident",
+                 "rt_encode_codes_gsvq"):
         if hasattr(lib, name):               # as _build.library() binds it
             fn = getattr(lib, name)
             fn.argtypes = list(_build._SIGNATURES[name])
@@ -64,73 +71,93 @@ def build(label: str, tree: Path):
     return lib, usage
 
 
-def caller(lib, z, cb):
+def caller(lib, z, cb, n_groups, n_slices, bits):
     """(path, a call of the library's kernel on z and cb -> (words, counts,
     sums)), its outputs and scratch allocated once, as the wrapper of the
     library's own checkout sizes them."""
     import torch
-    from repro_torch.kernels.encode_codes import (BLOCK_ROWS, TILE_ROWS,
-                                                  _sm_count, encode_path)
+    from repro_torch.kernels import encode_codes as E
     from repro_torch.kernels.pack_bits import packing_dims
     R, P, M = z.shape
     K = cb.shape[1]
-    G, W = packing_dims(BITS)
+    gsvq = n_groups > 1 or n_slices > 1
+    S = n_slices if gsvq else 1
+    G, W = packing_dims(bits)
     dev = z.device
-    words = torch.empty((R * -(-P // G), W), dtype=torch.int32, device=dev)
+    words = torch.empty((R * -(-P * S // G), W), dtype=torch.int32,
+                        device=dev)
     counts = torch.empty((R, K), device=dev)
     sums = torch.empty((R, K, M), device=dev)
     stream = torch.cuda.current_stream().cuda_stream
     out = (words, counts, sums)
-    if hasattr(lib, "rt_encode_codes_resident") \
-            and encode_path(K, M) == "resident":
-        nb = min(-(-P // TILE_ROWS), max(1, _sm_count(dev.index) // R))
+    path = E.encode_path(K, M, n_groups=n_groups, n_slices=n_slices)
+
+    def checked(name, err):
+        if err:
+            raise RuntimeError(f"{name} returned {err}")
+        return out
+
+    if path == "resident" and hasattr(lib, "rt_encode_codes_resident"):
+        nb = min(-(-P // E.TILE_ROWS), max(1, E._sm_count(dev.index) // R))
         pc = torch.empty((R, nb, K), dtype=torch.int32, device=dev)
         ps = torch.empty((R, nb, K, M), device=dev)
-
-        def call():
-            err = lib.rt_encode_codes_resident(
-                z.data_ptr(), cb.data_ptr(), words.data_ptr(),
-                counts.data_ptr(), sums.data_ptr(), pc.data_ptr(),
-                ps.data_ptr(), R, P, K, M, BITS, nb, dev.index, stream)
-            if err:
-                raise RuntimeError(f"rt_encode_codes_resident returned {err}")
-            return out
-        return "resident", call
-    NB = -(-P // BLOCK_ROWS)
+        return path, lambda: checked("rt_encode_codes_resident",
+                                     lib.rt_encode_codes_resident(
+            z.data_ptr(), cb.data_ptr(), words.data_ptr(),
+            counts.data_ptr(), sums.data_ptr(), pc.data_ptr(),
+            ps.data_ptr(), R, P, K, M, bits, nb, dev.index, stream))
+    if path == "gsvq_tiled" and hasattr(lib, "rt_encode_codes_gsvq"):
+        nb = E.gsvq_blocks(R, P, S, dev.index)
+        pc = torch.empty((R, nb, n_groups), dtype=torch.int32, device=dev)
+        ps = torch.empty((R, nb, n_groups, M), device=dev)
+        return path, lambda: checked("rt_encode_codes_gsvq",
+                                     lib.rt_encode_codes_gsvq(
+            z.data_ptr(), cb.data_ptr(), words.data_ptr(),
+            counts.data_ptr(), sums.data_ptr(), pc.data_ptr(),
+            ps.data_ptr(), R, P, K, M, S, n_groups, bits, nb, dev.index,
+            stream))
+    bn = E.block_rows(S)
+    Pn = P * S
+    NB = -(-Pn // bn)
+    ng = K // n_groups if gsvq else 1
     pc = torch.empty((R, NB, K), device=dev)
     ps = torch.empty((R, NB, K, M), device=dev)
 
     def call():
-        err = lib.rt_encode_codes(
-            z.data_ptr(), cb.data_ptr(), words.data_ptr(), counts.data_ptr(),
-            sums.data_ptr(), pc.data_ptr(), ps.data_ptr(), R, P, P, M, M, K,
-            1, 1, 0, BITS, BLOCK_ROWS, NB, dev.index, stream)
-        if err:
-            raise RuntimeError(f"rt_encode_codes returned {err}")
-        return out
+        table = E.stacked_slice_table(cb, n_slices=S) if gsvq else cb
+        return checked("rt_encode_codes", lib.rt_encode_codes(
+            z.data_ptr(), table.data_ptr(), words.data_ptr(),
+            counts.data_ptr(), sums.data_ptr(), pc.data_ptr(), ps.data_ptr(),
+            R, P, Pn, M // S, M, K, S, ng, int(gsvq), bits, bn, NB,
+            dev.index, stream))
     return "thread_per_row", call
 
 
-def check(label, call, z, cb, scores):
-    """Codes by the near-tie rule against the plain scores, words the
-    packing of the kernel's own codes, counts exact, sums within
-    1e-5 of the summed magnitudes."""
+def check(label, call, z, cb, kw):
+    """Codes by the near-tie rule against the plain scores; words the
+    packing of the kernel's own codes; counts exact and sums within 1e-5 of
+    the summed magnitudes. Returns the codes that differ."""
     import torch
     from repro_torch.kernels import ref
     R, P, _ = z.shape
     K = cb.shape[1]
+    bits, n_groups, n_slices = kw["bits"], kw["n_groups"], kw["n_slices"]
+    S = n_slices if n_groups > 1 or n_slices > 1 else 1
     words, counts, sums = call()
     torch.cuda.synchronize()
-    codes = ref.unpack_records_ref(words, bits=BITS, n_records=R,
-                                   per_record=P)
+    scores = ref.encode_scores(z, cb, n_groups=n_groups, n_slices=n_slices)
+    codes = ref.unpack_records_ref(words, bits=bits, n_records=R,
+                                   per_record=P * S)
     n_diff, n_out = ref.code_mismatches(codes, scores.argmin(-1), scores)
-    p_counts, p_sums = ref.encode_stats(z, codes, K)
-    _, mag = ref.encode_stats(z.abs(), codes, K)
     ok = (n_out == 0 and n_diff <= 1e-3 * codes.numel()
           and torch.equal(words, ref.pack_codes_ref(
-              ref.pad_records(codes, BITS), bits=BITS))
-          and torch.equal(counts, p_counts)
-          and bool(((sums - p_sums).abs() <= 1e-5 * mag + 1e-6).all()))
+              ref.pad_records(codes, bits), bits=bits)))
+    if ok:
+        st = dict(n_groups=n_groups, n_slices=n_slices)
+        p_counts, p_sums = ref.encode_stats(z, codes, K, **st)
+        _, mag = ref.encode_stats(z.abs(), codes, K, **st)
+        ok = (torch.equal(counts, p_counts)
+              and bool(((sums - p_sums).abs() <= 1e-5 * mag + 1e-6).all()))
     if not ok:
         raise AssertionError(f"{label} at {tuple(z.shape)} x {K}: "
                              f"{n_diff} codes differ ({n_out} outside near "
@@ -151,24 +178,32 @@ def main(argv) -> int:
         return 1
     from repro_torch import resolve_device
     from repro_torch.kernels import ref
+    only = None
+    if argv[:1] == ["--only"]:
+        only, argv = argv[1], argv[2:]
+    shapes = {"vq": VQ_SHAPES, "gsvq": GSVQ_SHAPES}.get(
+        only, VQ_SHAPES + GSVQ_SHAPES)
     dev = resolve_device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     trees = dict(a.split("=", 1) for a in argv) or {"this": str(ROOT)}
-    libs = {k: build(k, Path(v).resolve()) for k, v in trees.items()}
+    libs = {}
+    for label, tree in trees.items():
+        libs[label] = build(label, Path(tree).resolve())
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    for R, P, K, M in SHAPES:
+    for R, P, K, M, n_groups, n_slices, bits in shapes:
         z = torch.randn((R, P, M), generator=gen, device=dev)
+        z = (z - z.mean(1, keepdim=True)) / z.std(1, keepdim=True)
         cb = torch.randn((R, K, M), generator=gen, device=dev)
-        scores = ref.encode_scores(z, cb)
-        calls, row = {}, {"shape": [R, P, K, M]}
+        kw = dict(bits=bits, n_groups=n_groups, n_slices=n_slices)
+        calls, row = {}, {"shape": [R, P, K, M], **kw}
         for label, (lib, _) in libs.items():
-            path, calls[label] = caller(lib, z, cb)
+            path, calls[label] = caller(lib, z, cb, n_groups, n_slices, bits)
             row[label] = {"path": path, "codes_differ": check(
-                label, calls[label], z, cb, scores)}
+                label, calls[label], z, cb, kw)}
         order = list(calls) + list(calls)[::-1]
         ms = chip_smoke.cuda_ms_turns([calls[k] for k in order], reps=50)
         for label in calls:
@@ -176,11 +211,10 @@ def main(argv) -> int:
             row[label]["device_ms"], row[label]["device_ms_by_kernel"] = \
                 device_split(calls[label])
         row["plain_ms"] = chip_smoke.cuda_ms(
-            lambda: ref.encode_codes_ref(z, cb, bits=BITS))
-        words = -(-P // 4)                    # 8 bits: 4 codes a word
-        row["bound_ms"], row["bound_by"] = chip_smoke.bound(
-            (z.numel() + cb.numel() + R * words + R * K + R * K * M) * 4,
-            2 * R * P * K * M)
+            lambda: ref.encode_codes_ref(z, cb, **kw), reps=5)
+        row.update(zip(("bound_ms", "bound_by", "tail_bound_ms"),
+                       chip_smoke.encode_bounds(R, P, K, M, n_groups,
+                                                n_slices, bits)))
         rows.append(row)
         print(json.dumps(row), flush=True)
     print(json.dumps({"card": smi, "turns": rows,
