@@ -1065,7 +1065,9 @@ extern "C" int rt_encode_codes(const float* z, const float* table, int* words,
 // The VQ path with the codebook resident. z (R, P, M) and codebooks
 // (R, K, M), contiguous float32, M <= 64 -> words (R*nW, W), counts (R, K),
 // sums (R, K, M). `nb` blocks a record, each walking its record's row
-// tiles; pcounts (R, nb, K) int32 and psums (R, nb, K, M) are scratch.
+// tiles; pcounts (R, nb, K) int32 and psums (R, nb, K, M) are scratch. The
+// caller takes `nb` from the record's shape alone, so that a record's sums,
+// added over its partials in reduce_block's fixed order, do not depend on R.
 extern "C" int rt_encode_codes_resident(const float* z,
                                         const float* codebooks, int* words,
                                         float* counts, float* sums,
@@ -1103,7 +1105,8 @@ extern "C" int rt_encode_codes_resident(const float* z,
 // (R, K, M), contiguous float32, S slices of width m = M / S (m % 4 == 0, m
 // <= 64), n_groups groups of ng = K / n_groups atoms -> words (R*nW, W) of
 // the position-major slice codes, counts (R, K), sums (R, K, M). `nb`
-// blocks a record, each walking its record's tiles of BP positions;
+// blocks a record, each walking its record's tiles of BP positions (`nb`
+// from the record's shape alone, as on the resident path);
 // pcounts (R, nb, n_groups) int32 and psums (R, nb, n_groups, M) are
 // scratch. Refuses shapes whose shared memory passes one block an SM.
 extern "C" int rt_encode_codes_gsvq(const float* z, const float* codebooks,

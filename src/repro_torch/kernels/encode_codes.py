@@ -15,10 +15,15 @@ its codes equal :func:`~repro_torch.kernels.vq_nn.vq_nearest_cuda`'s;
 speech config's 3-bit uplink), a register-tiled FP32 group search;
 ``"thread_per_row"`` for the rest (larger tables, slice widths past 64 or
 not a multiple of 4).
+
+A record's words, counts and sums are the same bits whatever other records
+share its launch: every path splits a record's rows into statistics
+partials by the record's own shape (:func:`resident_partials`,
+:func:`gsvq_partials`, :func:`block_rows`), never by R or the card's SM
+count, and adds the partials in a fixed order.
 """
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -38,6 +43,13 @@ RESIDENT_BUDGET = (228 - 3) * 1024
 GSVQ_PASS_ROWS = 64
 #: warps of the tiled GSVQ kernel that add votes, each into its own sums
 GSVQ_VOTE_WARPS = 8
+#: statistics partials a record gets on the resident path: one per
+#: PARTIAL_ROWS rows, at least MIN_PARTIALS and at most MAX_PARTIALS (and
+#: never more than its row tiles). Each is a (K, M) float block written and
+#: read once, so their number grows with the record's rows, not with the card
+PARTIAL_ROWS = 512
+MIN_PARTIALS = 32
+MAX_PARTIALS = 128
 
 
 def stacked_slice_table(codebooks: torch.Tensor, *,
@@ -117,16 +129,20 @@ def encode_path(K: int, M: int, *, n_groups: int = 1,
     return "resident"
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def resident_partials(P: int) -> int:
+    """Blocks a record of the resident kernel, each walking every nb-th row
+    tile of it into one statistics partial. A function of the record's rows
+    alone: a record's sums, reduced over its partials in a fixed order, are
+    then the same bits whatever stack of records it rides in."""
+    tiles = -(-P // TILE_ROWS)
+    return min(tiles, MAX_PARTIALS, max(MIN_PARTIALS, P // PARTIAL_ROWS))
 
 
-def gsvq_blocks(R: int, P: int, n_slices: int, index: int) -> int:
-    """Blocks a record of the tiled GSVQ kernel: one an SM, spread over the
-    records, each walking its record's tiles; no more than the tiles."""
-    tiles = -(-P // gsvq_tile_positions(n_slices))
-    return min(tiles, max(1, _sm_count(index) // R))
+def gsvq_partials(P: int, n_slices: int) -> int:
+    """Blocks a record of the tiled GSVQ kernel, each walking every nb-th
+    tile: one a tile up to MAX_PARTIALS, a function of the record's shape
+    alone (a partial is only (n_groups, M) floats)."""
+    return min(-(-P // gsvq_tile_positions(n_slices)), MAX_PARTIALS)
 
 
 def encode_codes_cuda(z: torch.Tensor, codebooks: torch.Tensor, *,
@@ -168,9 +184,10 @@ def encode_codes_cuda(z: torch.Tensor, codebooks: torch.Tensor, *,
         return words, counts.zero_(), sums.zero_()
     path = encode_path(K, M, n_groups=n_groups, n_slices=n_slices)
     if path == "gsvq_tiled":
-        # the slice tables resident, one block an SM, each walking its
-        # record's tiles; one (n_groups, M) partial a block
-        nb = gsvq_blocks(R, P, S, dev.index)
+        # the slice tables resident; grid (nb, R): each block walks its
+        # record's tiles into one (n_groups, M) partial, nb from the
+        # record's shape alone
+        nb = gsvq_partials(P, S)
         pcounts = torch.empty((R, nb, n_groups), dtype=torch.int32,
                               device=dev)
         psums = torch.empty((R, nb, n_groups, M), dtype=torch.float32,
@@ -182,9 +199,9 @@ def encode_codes_cuda(z: torch.Tensor, codebooks: torch.Tensor, *,
             _build.stream_of(z)), "encode_codes")
         return words, counts, sums
     if path == "resident":
-        # one block an SM, spread over the records, each walking its
-        # record's row tiles; one partial a block
-        nb = min(-(-P // TILE_ROWS), max(1, _sm_count(dev.index) // R))
+        # grid (nb, R): each block walks its record's row tiles into one
+        # partial, nb from the record's rows alone
+        nb = resident_partials(P)
         pcounts = torch.empty((R, nb, K), dtype=torch.int32, device=dev)
         psums = torch.empty((R, nb, K, M), dtype=torch.float32, device=dev)
         _build.check(_build.library().rt_encode_codes_resident(

@@ -9,16 +9,20 @@ grouped by (version, bits) and each group is one fused decode dispatch.
 Unprivatized payloads are refused at the door (§2.5).
 
 Capacity bounds with FIFO/reservoir eviction, snapshots and the sharded
-store come with the server-runtime slice.
+store come with the server-runtime slice. While a flight recorder is
+active, ``add`` sets the ``store_*`` gauges and every decode group logs a
+``decode`` event and a ``decode_ms/v<version>`` observation.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.dvqae import DVQAEConfig
+from repro_torch.obs import recorder as _obs
 from repro_torch.wire.payload import (DEFAULT_TASK, CodePayload,
                                       normalize_labels)
 
@@ -88,6 +92,11 @@ class CodeStore:
         self.ingested_records += 1
         self.ingested_samples += rec.n_samples
         self.ingested_bytes += packed.nbytes
+        ob = _obs.active()
+        if ob is not None:
+            ob.metrics.set_gauge("store_records", len(self._records))
+            ob.metrics.set_gauge("store_samples", self.n_samples)
+            ob.metrics.set_gauge("store_bytes", self.total_bytes)
         return rec
 
     def get(self, client_id: int, round: int) -> Tuple[torch.Tensor, int]:
@@ -165,9 +174,18 @@ def decode_records(records, cfg: DVQAEConfig, registry, *,
     for i, r in recs:
         groups.setdefault((r.version, r.packed.bits), []).append(i)
     parts: Dict[int, torch.Tensor] = {}
+    ob = _obs.active()
     for (v, _), idxs in groups.items():
+        t0 = time.perf_counter() if ob is not None else 0.0
         blocks = decode_group([records[i] for i in idxs], cfg,
                               registry.get(v))
+        if ob is not None:
+            _obs.settle(*blocks)
+            dur_ms = (time.perf_counter() - t0) * 1e3
+            ob.event("decode", version=int(v), dur_ms=dur_ms,
+                     n_records=len(idxs),
+                     n_samples=int(sum(b.shape[0] for b in blocks)))
+            ob.metrics.observe(f"decode_ms/v{int(v)}", dur_ms)
         parts.update(zip(idxs, blocks))
     feats = torch.cat([parts[i] for i, _ in recs], dim=0)
     return feats, label_dict_for([r for _, r in recs])

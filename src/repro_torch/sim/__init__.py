@@ -1,0 +1,36 @@
+"""Batched multi-client OCTOPUS simulation (port of ``repro.sim``).
+
+  engine  — stacked client populations, per-client encoder passes and ONE
+            fused encode dispatch a round; the round's uplink is a
+            ``repro_torch.wire.payload.CodePayload``
+  cohort  — cohort-streamed population rounds with the exactly associative
+            Step 5 stats merge
+
+Not ported yet (``ROADMAP.md``): the cohort engine's scheduler-driven and
+continuous-ingest traffic (``run_traffic``, ``run_continuous``, with their
+``TrafficRound`` and ``ContinuousTick`` ledgers) and the chaos plane
+(``faults``), which wait for the server runtime. The retired
+``IngestBuffer`` and ``PackedCodes`` raise on import, as in the reference.
+"""
+from repro_torch.wire.payload import CodePayload
+
+from .cohort import CohortEngine, CohortPlan, CohortRound
+from .engine import (SimEngine, client_batch_size, replicate_clients,
+                     stack_clients, unstack_clients)
+
+__all__ = ["CodePayload", "CohortEngine", "CohortPlan", "CohortRound",
+           "SimEngine", "client_batch_size", "replicate_clients",
+           "stack_clients", "unstack_clients"]
+
+_TOMBSTONES = {
+    "IngestBuffer": "repro_torch.server.store.CodeStore",
+    "PackedCodes": "repro_torch.wire.payload.CodePayload",
+}
+
+
+def __getattr__(name):
+    if name in _TOMBSTONES:
+        raise ImportError(
+            f"repro_torch.sim.{name} was removed; use {_TOMBSTONES[name]} "
+            f"(the unified wire carrier/store)")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -23,9 +23,15 @@ migration windows and the server runtime's options:
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU they raise rather than fall back (``repro_torch.resolve_device``).
+
+While a flight recorder is active (:mod:`repro_torch.obs`), ``round`` logs
+an ``encode`` and an ``uplink`` event, ``ingest`` an ``ingest`` event,
+``decode`` a ``decode`` event and ``merge`` / ``merge_stats`` a ``merge``
+event, at the reference's sites and with its fields.
 """
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -34,6 +40,7 @@ from repro_torch import resolve_device
 from repro_torch.core import octopus as OC
 from repro_torch.core.dvqae import DVQAEConfig
 from repro_torch.core.ema import init_ema
+from repro_torch.obs import recorder as _obs
 
 from .payload import SUPPORTED_WIRE_VERSIONS, CodePayload
 
@@ -134,14 +141,23 @@ class OctopusClient:
         round (0 skips Step 2); ``refresh=False`` skips the Step 5 EMA
         refresh."""
         n_local = self.n_local_steps if finetune is None else int(finetune)
+        rec = _obs.active()
+        t0 = time.perf_counter() if rec is not None else 0.0
         self.state, z, words = _round_core(
             self.state, self.cfg, self._batch(batch), lr=self.lr,
             gamma=self.gamma, n_local_steps=n_local, refresh=refresh)
-        return CodePayload.from_words(
+        payload = CodePayload.from_words(
             words, bits=OC.transmit_bits(self.cfg),
             shape=(1,) + index_shape(self.cfg, z.shape), n_records=1,
             version=self.version, labels=labels, n_samples=int(z.shape[0]),
             privatized=True)
+        if rec is not None:
+            _obs.settle(payload.payload, self.codebook)
+            rec.event("encode", dur_ms=(time.perf_counter() - t0) * 1e3,
+                      client_id=self.client_id, n_local_steps=n_local,
+                      refresh=bool(refresh), **_obs.payload_meta(payload))
+            rec.uplink(payload, client_id=self.client_id)
+        return payload
 
     def transmit(self, batch, *, labels=None) -> CodePayload:
         """Encode-only uplink (Steps 3-4): no fine-tuning, no refresh."""
@@ -240,10 +256,19 @@ class OctopusServer:
             raise TypeError(f"the wire endpoint wants a CodePayload, got "
                             f"{type(payload).__name__}")
         verdict, reason = self.precheck(payload)
+        rec = _obs.active()
         if verdict == "rejected":
+            if rec is not None:
+                rec.metrics.inc("uplinks_rejected")
+                rec.metrics.inc("bytes_rejected", payload.nbytes)
             return AdmissionResult(verdict, reason, payload.nbytes, None)
-        rec = self.store.add(payload, client_ids=client_ids, round=round)
-        return AdmissionResult(verdict, reason, payload.nbytes, rec)
+        out = self.store.add(payload, client_ids=client_ids, round=round)
+        if rec is not None:
+            rec.metrics.inc("uplinks_ingested")
+            rec.metrics.inc("bytes_ingested", payload.nbytes)
+            rec.event("ingest", round=int(round), verdict=verdict,
+                      **_obs.payload_meta(payload))
+        return AdmissionResult(verdict, reason, payload.nbytes, out)
 
     def features(self, *, version: Optional[int] = None):
         """Bulk decode of everything ingested, each version group against
@@ -254,9 +279,18 @@ class OctopusServer:
     def decode(self, payload: CodePayload) -> torch.Tensor:
         """Directly decode ONE payload (store bypass) against the snapshot
         it was packed under; merges the client axis."""
+        rec = _obs.active()
+        t0 = time.perf_counter() if rec is not None else 0.0
         feats = OC.codes_to_features(self.cfg, payload,
                                      self.registry.get(payload.version))
-        return feats.reshape((-1,) + tuple(feats.shape[2:]))
+        out = feats.reshape((-1,) + tuple(feats.shape[2:]))
+        if rec is not None:
+            _obs.settle(out)
+            dur_ms = (time.perf_counter() - t0) * 1e3
+            rec.event("decode", version=int(payload.version), dur_ms=dur_ms,
+                      n_samples=int(out.shape[0]))
+            rec.metrics.observe(f"decode_ms/v{int(payload.version)}", dur_ms)
+        return out
 
     # --------------------------------------------------------- Step 5 tail
 
@@ -268,6 +302,11 @@ class OctopusServer:
             self.state, client_codebooks, client_counts,
             client_versions=client_versions,
             staleness_decay=staleness_decay)
+        rec = _obs.active()
+        if rec is not None:
+            rec.metrics.inc("merges")
+            rec.event("merge", version=int(version),
+                      n_clients=int(len(client_counts)))
         return version
 
     def merge_clients(self, clients: OC.ClientState, **kw) -> int:
@@ -281,4 +320,9 @@ class OctopusServer:
         cohort partition or order of the same clients. Registers and
         returns the new version."""
         self.state = OC.server_merge_stats(self.state, stats)
-        return self.registry.register(self.state.params["codebook"])
+        version = self.registry.register(self.state.params["codebook"])
+        rec = _obs.active()
+        if rec is not None:
+            rec.metrics.inc("merges")
+            rec.event("merge", version=int(version), source="stats")
+        return version

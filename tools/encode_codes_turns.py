@@ -17,7 +17,8 @@ slice-stacked table), with its scratch allocated once.
 
 Shapes (``--only`` picks one set): plain VQ at 8 bits, a full-width client
 batch (1, 65,536, 64) x (1, 256, 64), the train phase's largest transmit
-(1, 10,240, 64) and 8 clients' (8, 65,536, 64) x (8, 256, 64); GSVQ g8s2 (8
+(1, 10,240, 64), 8 clients' (8, 65,536, 64) x (8, 256, 64) and a cohort
+of 64 clients' (64, 16,384, 64) x (64, 256, 64); GSVQ g8s2 (8
 groups, 2 slices, K 256, M 64, 3 bits) at the speech transmit's (1, 7,680,
 64) and at (1, 65,536, 64). Each kernel's codes are held against the plain
 version (``repro_torch.kernels.ref``, near-tie rule) and its words, counts
@@ -43,7 +44,7 @@ import chip_smoke  # noqa: E402  (its timing helpers; it imports no torch)
 BUILD = ROOT / "build" / "encode_turns"
 #: (R, P, K, M, n_groups, n_slices, bits)
 VQ_SHAPES = ((1, 65536, 256, 64, 1, 1, 8), (1, 10240, 256, 64, 1, 1, 8),
-             (8, 65536, 256, 64, 1, 1, 8))
+             (8, 65536, 256, 64, 1, 1, 8), (64, 16384, 256, 64, 1, 1, 8))
 GSVQ_SHAPES = ((1, 7680, 256, 64, 8, 2, 3), (1, 65536, 256, 64, 8, 2, 3))
 PROFILE_REPS = 20
 
@@ -71,10 +72,18 @@ def build(label: str, tree: Path):
     return lib, usage
 
 
-def caller(lib, z, cb, n_groups, n_slices, bits):
+def shape_partials(tree: Path) -> bool:
+    """Whether the checkout's wrapper takes a record's partials from its
+    shape (``resident_partials``); older ones took ``SM count // R``."""
+    wrapper = tree / "src" / "repro_torch" / "kernels" / "encode_codes.py"
+    return "def resident_partials" in wrapper.read_text()
+
+
+def caller(lib, z, cb, n_groups, n_slices, bits, by_shape=True):
     """(path, a call of the library's kernel on z and cb -> (words, counts,
     sums)), its outputs and scratch allocated once, as the wrapper of the
-    library's own checkout sizes them."""
+    library's own checkout sizes them (``by_shape``: partials from the
+    record's shape, else one block an SM spread over the records)."""
     import torch
     from repro_torch.kernels import encode_codes as E
     from repro_torch.kernels.pack_bits import packing_dims
@@ -98,7 +107,9 @@ def caller(lib, z, cb, n_groups, n_slices, bits):
         return out
 
     if path == "resident" and hasattr(lib, "rt_encode_codes_resident"):
-        nb = min(-(-P // E.TILE_ROWS), max(1, E._sm_count(dev.index) // R))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        nb = E.resident_partials(P) if by_shape else \
+            min(-(-P // E.TILE_ROWS), max(1, sms // R))
         pc = torch.empty((R, nb, K), dtype=torch.int32, device=dev)
         ps = torch.empty((R, nb, K, M), device=dev)
         return path, lambda: checked("rt_encode_codes_resident",
@@ -107,7 +118,9 @@ def caller(lib, z, cb, n_groups, n_slices, bits):
             counts.data_ptr(), sums.data_ptr(), pc.data_ptr(),
             ps.data_ptr(), R, P, K, M, bits, nb, dev.index, stream))
     if path == "gsvq_tiled" and hasattr(lib, "rt_encode_codes_gsvq"):
-        nb = E.gsvq_blocks(R, P, S, dev.index)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        nb = E.gsvq_partials(P, S) if by_shape else \
+            min(-(-P // E.gsvq_tile_positions(S)), max(1, sms // R))
         pc = torch.empty((R, nb, n_groups), dtype=torch.int32, device=dev)
         ps = torch.empty((R, nb, n_groups, M), device=dev)
         return path, lambda: checked("rt_encode_codes_gsvq",
@@ -189,9 +202,10 @@ def main(argv) -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     trees = dict(a.split("=", 1) for a in argv) or {"this": str(ROOT)}
-    libs = {}
+    libs, by_shape = {}, {}
     for label, tree in trees.items():
         libs[label] = build(label, Path(tree).resolve())
+        by_shape[label] = shape_partials(Path(tree).resolve())
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
     for R, P, K, M, n_groups, n_slices, bits in shapes:
@@ -201,7 +215,8 @@ def main(argv) -> int:
         kw = dict(bits=bits, n_groups=n_groups, n_slices=n_slices)
         calls, row = {}, {"shape": [R, P, K, M], **kw}
         for label, (lib, _) in libs.items():
-            path, calls[label] = caller(lib, z, cb, n_groups, n_slices, bits)
+            path, calls[label] = caller(lib, z, cb, n_groups, n_slices, bits,
+                                        by_shape[label])
             row[label] = {"path": path, "codes_differ": check(
                 label, calls[label], z, cb, kw)}
         order = list(calls) + list(calls)[::-1]
