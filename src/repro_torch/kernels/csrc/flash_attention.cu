@@ -65,6 +65,10 @@
 //  * Blocks of the last query tiles (the most KV tiles when causal) are
 //    numbered first, so the longest blocks start first. 101 KB of shared
 //    memory at D = 128: two blocks (8 warps) an SM.
+//  * When a graph is built, the caller passes lse (B, Hq, Tq) and each row's
+//    log-sum-exp m + log(l) of its scaled scores is stored there for the
+//    backward (flash_attention_bwd.cu); the output is the same bits with or
+//    without it (serving passes null).
 //  * Float32 only, D of 64 or 128 (ROADMAP lists bf16 and other D as open).
 //    wgmma fed by TMA, the full TF32 rate, is a later step.
 #include <cuda_runtime.h>
@@ -145,7 +149,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
-                 int Hq, int Tq, int Tk, int q_per_kv, int n_bh, int n_qt,
+                 float* __restrict__ lse, int Hq, int Tq, int Tk,
+                 int q_per_kv, int n_bh, int n_qt,
                  int causal, int window, float scale) {
   using L = Tile<D>;
   constexpr int D4 = D / 4;
@@ -326,8 +331,16 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();                     // the stage is read: refill it
   }
 
-  const float inv0 = 1.f / fmaxf(quad_sum(l[0]), 1e-30f);
-  const float inv1 = 1.f / fmaxf(quad_sum(l[1]), 1e-30f);
+  const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  // the row's log-sum-exp of its scaled scores, for the backward: only
+  // stored, so `out` is the same bits with or without it
+  if (lse != nullptr && t == 0) {
+    float* lrow = lse + static_cast<long long>(b * Hq + h) * Tq;
+    if (r0 < Tq) lrow[r0] = m[0] + logf(l0);
+    if (r1 < Tq) lrow[r1] = m[1] + logf(l1);
+  }
   const long long row_stride = static_cast<long long>(Hq) * D;
   float* o0 = out + ((static_cast<long long>(b) * Tq + r0) * Hq + h) * D +
               2 * t;
@@ -347,7 +360,7 @@ struct SmemAttr {};
 
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* out,
-                   int B, int Tq, int Tk, int Hq, int Hkv, int causal,
+                   float* lse, int B, int Tq, int Tk, int Hq, int Hkv, int causal,
                    int window, float scale, int device, cudaStream_t st) {
   auto kernel = flash_kernel<D>;
   // the shared-memory attributes, once per device
@@ -368,7 +381,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out,
   if (n_bh > 0x7fffffffLL || blocks > 0x7fffffffLL)
     return cudaErrorInvalidConfiguration;
   kernel<<<static_cast<unsigned>(blocks), kThreads, Tile<D>::bytes, st>>>(
-      q, k, v, out, Hq, Tq, Tk, Hq / Hkv, static_cast<int>(n_bh), n_qt,
+      q, k, v, out, lse, Hq, Tq, Tk, Hq / Hkv, static_cast<int>(n_bh), n_qt,
       causal, window, scale);
   return cudaGetLastError();
 }
@@ -379,9 +392,11 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// q, out (B, Tq, Hq, D) and k, v (B, Tk, Hkv, D), contiguous float32.
+// q, out (B, Tq, Hq, D) and k, v (B, Tk, Hkv, D), contiguous float32; lse
+// (B, Hq, Tq) float32, or null when the caller needs no log-sum-exp.
 extern "C" int rt_flash_attention(const float* q, const float* k,
-                                  const float* v, float* out, int B, int Tq,
+                                  const float* v, float* out, float* lse,
+                                  int B, int Tq,
                                   int Tk, int Hq, int Hkv, int D, int causal,
                                   int window, float scale, int device,
                                   void* stream) {
@@ -394,10 +409,10 @@ extern "C" int rt_flash_attention(const float* q, const float* k,
   if (err != cudaSuccess) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return launch<64>(q, k, v, out, B, Tq, Tk, Hq, Hkv, causal, window,
+    return launch<64>(q, k, v, out, lse, B, Tq, Tk, Hq, Hkv, causal, window,
                       scale, device, st);
   if (D == 128)
-    return launch<128>(q, k, v, out, B, Tq, Tk, Hq, Hkv, causal, window,
+    return launch<128>(q, k, v, out, lse, B, Tq, Tk, Hq, Hkv, causal, window,
                        scale, device, st);
   return cudaErrorInvalidValue;
 }

@@ -13,14 +13,21 @@ Gradients. The CUDA kernels write their outputs through ``ctypes``, so
 autograd cannot see into them. ``rmsnorm``, ``flash_attention`` and
 ``selective_scan`` therefore go through a ``torch.autograd.Function``
 whenever a graph is being built (grad mode on and an input that requires
-grad): its forward launches the kernel, its backward recomputes the plain
-version on the saved inputs and differentiates that. This is the gradient
-the reference takes (XLA's autodiff of plain ``jnp``; it has no backward
-kernel). The recompute materialises what the kernels keep on chip: the
-(B, H, Tq, Tk) scores of attention and every state of the scan. Under
-``torch.no_grad()`` (serving) the kernels are called directly and no graph
-is built. A CPU tensor runs the plain version, which autograd differentiates
-itself.
+grad); under ``torch.no_grad()`` (serving) the kernels are called directly
+and no graph is built. A CPU tensor runs the plain version, which autograd
+differentiates itself. The reference has no backward kernel: XLA
+differentiates plain ``jnp``. On the card:
+
+* ``rmsnorm`` and ``flash_attention``: the backward is a hand-written
+  kernel too (``csrc/rmsnorm_bwd.cu``, ``csrc/flash_attention_bwd.cu``),
+  counted in :data:`LAUNCHES` as ``rmsnorm_bwd`` and ``flash_attention_bwd``.
+  The flash forward saves its output and each row's log-sum-exp for it, so
+  the (B, H, T, T) scores are never materialised.
+* ``selective_scan``: the backward recomputes the plain version on the
+  saved inputs and differentiates that, materialising every state of the
+  scan. Only Jamba runs the scan, and a Jamba period does not fit one card
+  with its optimizer state, so no training path needs it yet; the
+  reverse-time scan kernel comes with the hybrid training path (ROADMAP).
 """
 from __future__ import annotations
 
@@ -30,9 +37,9 @@ from . import ref
 from ._build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
 from .decode_codes import decode_codes_cuda
 from .encode_codes import encode_codes_cuda
-from .flash_attention import flash_attention_cuda
+from .flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
 from .pack_bits import pack_codes_cuda, unpack_codes_cuda
-from .rmsnorm import rmsnorm_cuda
+from .rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
 from .selective_scan import check_scan_args, selective_scan_cuda
 from .vq_nn import vq_nearest_cuda
 
@@ -65,7 +72,7 @@ def _recompute_grads(ctx, plain, grads):
 
 
 class _RMSNorm(torch.autograd.Function):
-    """The rmsnorm kernel forward, the plain version's gradient back."""
+    """The rmsnorm kernel forward, the rmsnorm_bwd kernel back."""
 
     @staticmethod
     def forward(ctx, x, scale, eps):
@@ -75,31 +82,36 @@ class _RMSNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _recompute_grads(
-            ctx, lambda x, s: ref.rmsnorm_ref(x, s, ctx.eps), (g,)) + (None,)
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd_cuda(x, scale, g.contiguous(), eps=ctx.eps)
+        return dx, dscale, None
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The flash kernel forward, the plain version's gradient back (the
-    plain version reads KV heads by index, so autograd sums each group's
-    gradient into its KV head)."""
+    """The flash kernel forward (with each row's log-sum-exp), the
+    flash_attention_bwd kernel back; it sums each group's gradient into
+    its KV head."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        ctx.save_for_backward(q, k, v)
+        out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
-        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        return _recompute_grads(ctx, lambda q, k, v: ref.flash_attention_ref(
-            q, k, v, causal=ctx.causal, window=ctx.window), (g,)) \
-            + (None, None)
+        q, k, v, out, lse = ctx.saved_tensors
+        return flash_attention_bwd_cuda(
+            q, k, v, out, lse, g.contiguous(), causal=ctx.causal,
+            window=ctx.window) + (None, None)
 
 
 class _SelectiveScan(torch.autograd.Function):
     """The scan kernel forward, the plain version's gradient back, through
-    y, h_last or both (autograd hands zeros for an output with none)."""
+    y, h_last or both (autograd hands zeros for an output with none): the
+    one backward that is a recompute, not a kernel (module docstring)."""
 
     @staticmethod
     def forward(ctx, decay, inp, c, h0):

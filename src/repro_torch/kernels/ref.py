@@ -239,6 +239,21 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                    eps: float = 1e-6):
+    """Gradients of :func:`rmsnorm_ref` for an output gradient ``g``, by
+    the backward kernel's formula: with ``r = rsqrt(mean(x^2) + eps)``,
+    ``dx = r*(g*scale) - x*r^3*<g*scale, x>/d`` a row and ``dscale`` the
+    sum over rows of ``g*(x*r)`` -> (dx (..., d), dscale (d,))."""
+    xf, gs = x.float(), g.float() * scale.float()
+    d = x.shape[-1]
+    r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    dot = (gs * xf).sum(-1, keepdim=True)
+    dx = gs * r - xf * (r * r * r * (dot / d))
+    dscale = (g.float() * (xf * r)).reshape(-1, d).sum(0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
 #: the masked-score fill of the flash kernels: finite, so a row whose
 #: first KV tile is wholly masked gives exp(0) = 1 there, not NaN
 NEG_INF = -1e30
@@ -252,24 +267,78 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     KV head ``h // (Hq // Hkv)`` (GQA). Scores are scaled after the dot,
     masked keys (``kpos > qpos`` when causal, ``kpos <= qpos - window``
     when ``window``) score ``-1e30``."""
-    B, Tq, H, D = q.shape
-    Tk = k.shape[1]
-    heads = torch.arange(H, device=q.device) // (H // k.shape[2])
-    kf = k.float().index_select(2, heads)
-    vf = v.float().index_select(2, heads)
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
-    qpos = torch.arange(Tq, device=q.device)[:, None]
-    kpos = torch.arange(Tk, device=q.device)[None, :]
-    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    s, vf = _masked_scores(q, k, v, causal, window, scale)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def _mask(Tq: int, Tk: int, causal: bool, window: int, device):
+    """(Tq, Tk) True where query position qpos sees key position kpos."""
+    qpos = torch.arange(Tq, device=device)[:, None]
+    kpos = torch.arange(Tk, device=device)[None, :]
+    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=device)
     if causal:
         mask &= kpos <= qpos
     if window:
         mask &= kpos > qpos - window
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+    return mask
+
+
+def _kv_heads(t: torch.Tensor, H: int) -> torch.Tensor:
+    """(B, T, Hkv, D) keys or values read at each of H query heads."""
+    heads = torch.arange(H, device=t.device) // (H // t.shape[2])
+    return t.float().index_select(2, heads)
+
+
+def _masked_scores(q, k, v, causal, window, scale=None):
+    """((B, H, Tq, Tk) scaled scores, masked ones at NEG_INF; v read at
+    every query head)."""
+    B, Tq, H, D = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), _kv_heads(k, H)) * scale
+    mask = _mask(Tq, k.shape[1], causal, window, q.device)
+    return torch.where(mask, s, torch.full_like(s, NEG_INF)), \
+        _kv_heads(v, H)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: int = 0) -> torch.Tensor:
+    """The (B, H, Tq) log-sum-exp of each query row's scaled, masked
+    scores, which the flash forward writes for its backward."""
+    return torch.logsumexp(_masked_scores(q, k, v, causal, window)[0], -1)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True, window: int = 0):
+    """Gradients of :func:`flash_attention_ref` by the backward kernel's
+    formula, queries and keys sharing T: ``P = exp(S*scale - lse)`` on the
+    seen keys (0 elsewhere), ``delta = <do, o>`` a row, ``dV = P^T dO``,
+    ``dS = P*(dO V^T - delta)``, ``dQ = dS K*scale``, ``dK = dS^T Q*scale``,
+    each KV head's gradient summed over its query heads -> (dq, dk, dv)."""
+    B, T, H, D = q.shape
+    Hkv = k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf, dof = q.float(), _kv_heads(k, H), _kv_heads(v, H), \
+        do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    mask = _mask(T, T, causal, window, q.device)
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]),
+                    torch.zeros_like(s))
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)        # (B, H, T)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+
+    def per_kv_head(t):
+        return t.reshape(B, T, Hkv, H // Hkv, D).sum(3)
+
+    return dq.to(q.dtype), per_kv_head(dk).to(k.dtype), \
+        per_kv_head(dv).to(v.dtype)
 
 
 def selective_scan_ref(decay: torch.Tensor, inp: torch.Tensor,

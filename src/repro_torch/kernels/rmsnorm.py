@@ -3,7 +3,9 @@
 Port of ``repro.kernels.rmsnorm``: ``x * rsqrt(mean(x^2) + eps) * scale``
 over the last axis of ``x`` (..., d), in float32. The kernel is
 ``csrc/rmsnorm.cu``; its plain version is
-:func:`repro_torch.kernels.ref.rmsnorm_ref`.
+:func:`repro_torch.kernels.ref.rmsnorm_ref`. The backward is
+``csrc/rmsnorm_bwd.cu`` (:func:`rmsnorm_bwd_cuda`, plain version
+:func:`repro_torch.kernels.ref.rmsnorm_bwd_ref`).
 
 A decode step calls it 113 times on 8 rows, where the host's part of a call
 is most of its time, so the arguments are checked in one pass and the
@@ -43,3 +45,48 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *,
             x.data_ptr(), scale.data_ptr(), out.data_ptr(), n, d, eps, dev,
             _build.stream_of(x)), "rmsnorm")
     return out
+
+
+#: blocks of the backward, each writing one float64 row of dscale partials:
+#: one a row up to this many rows, then this many. Taken from the row count
+#: alone, so dscale's summation order, and its bits, are the same on any card.
+PARTIALS = 256
+
+
+def _refuse_bwd(x, scale, g):
+    _require_cuda(x, "x", torch.float32)
+    _require_cuda(scale, "scale", torch.float32)
+    _require_cuda(g, "g", torch.float32)
+    for name, t in (("scale", scale), ("g", g)):
+        if t.device != x.device:
+            raise ValueError(f"{name} lies on {t.device}, x on {x.device}")
+    raise ValueError(f"x and g must be (..., d) and scale (d,), got "
+                     f"{tuple(x.shape)}, {tuple(g.shape)} and "
+                     f"{tuple(scale.shape)}")
+
+
+def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                     *, eps: float = 1e-6):
+    """Gradients of ``rmsnorm_cuda(x, scale, eps)`` for an output gradient
+    ``g``: (..., d) float32 rows x and g, (d,) scale, contiguous on one card
+    -> (dx (..., d), dscale (d,)). ``rsqrt(mean(x^2) + eps)`` is recomputed
+    from x; dscale sums per-block float64 partials in a fixed order.
+    Checked in one pass, as the forward is."""
+    d = x.shape[-1] if x.dim() else 0
+    dev = x.get_device()
+    if not (all(t.is_cuda and t.dtype == torch.float32 and t.is_contiguous()
+                and t.get_device() == dev for t in (x, scale, g))
+            and d >= 1 and scale.shape == (d,) and g.shape == x.shape):
+        _refuse_bwd(x, scale, g)
+    dx = torch.empty_like(x)
+    n = x.numel() // d
+    if not n:
+        return dx, torch.zeros_like(scale)
+    nb = min(n, PARTIALS)
+    part = x.new_empty((nb, d), dtype=torch.float64)
+    dscale = torch.empty_like(scale)
+    _build.check(_build.library().rt_rmsnorm_bwd(
+        x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        part.data_ptr(), dscale.data_ptr(), n, d, nb, eps, dev,
+        _build.stream_of(x)), "rmsnorm_bwd")
+    return dx, dscale

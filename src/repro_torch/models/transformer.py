@@ -1,4 +1,4 @@
-"""Decoder LM assembly: prefill and one-token decode.
+"""Decoder LM assembly: the training loss, prefill and one-token decode.
 
 Port of ``repro.models.transformer`` for blocks of self-attention or a
 Mamba mixer, each with a dense gated MLP or a MoE feed-forward: qwen3-0.6b
@@ -14,8 +14,10 @@ attention and a :class:`MambaCache` (h (n, B, di, N), conv (n, B, K - 1,
 di)) for Mamba; a decode step writes each layer's slice in place.
 
 Other mixers (MLA, xLSTM), the Whisper encoder-decoder and the MTP head
-raise ``NotImplementedError``: ROADMAP.md lists them. ``lm_loss`` comes
-with the training slice. The reference's ``hints.residual`` and
+raise ``NotImplementedError``: ROADMAP.md lists them. With ``remat`` each
+block runs under ``torch.utils.checkpoint``, as the reference wraps each
+scanned block body in ``jax.checkpoint``: its activations are recomputed
+in the backward, not kept. The reference's ``hints.residual`` and
 ``hints.logits`` are identities off a mesh and are left out, and so is
 ``window_override`` (only the reference's dry run sets it): attention uses
 ``cfg.sliding_window``.
@@ -25,6 +27,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -146,15 +150,23 @@ def _layer_cache(seg_cache, j: int):
 
 
 def _run_segments(params, cfg, x, positions, *, caches=None,
-                  cache_index=None):
+                  cache_index=None, remat=False):
     """Every layer in order -> (x, summed aux_loss). ``caches``
     (per-segment stacked) are updated in place: attention writes its KV
     slot itself, a Mamba layer's new state and window are copied into its
-    slice. The RoPE angles are computed once for all layers."""
+    slice. The RoPE angles are computed once for all layers. ``remat``
+    (no caches) recomputes each block's activations in the backward."""
     cos_sin = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
     aux = x.new_zeros((), dtype=torch.float32)
     for si, (mixer, ffn, _) in enumerate(segment_plan(cfg)):
         for j, bp in enumerate(params["segments"][si]):
+            if remat:
+                # the model draws no random numbers: no RNG state to keep
+                x, a = checkpoint(_remat_block, bp, cfg, mixer, ffn, x,
+                                  positions, cos_sin, use_reentrant=False,
+                                  preserve_rng_state=False)
+                aux = aux + a
+                continue
             lc = None if caches is None else _layer_cache(caches[si], j)
             x, nc, a = _apply_block(bp, cfg, mixer, ffn, x, positions,
                                     cache=lc, cache_index=cache_index,
@@ -164,6 +176,12 @@ def _run_segments(params, cfg, x, positions, *, caches=None,
                 lc.h.copy_(nc.h)
                 lc.conv.copy_(nc.conv)
     return x, aux
+
+
+def _remat_block(bp, cfg, mixer, ffn, x, positions, cos_sin):
+    x, _, a = _apply_block(bp, cfg, mixer, ffn, x, positions,
+                           cos_sin=cos_sin)
+    return x, a
 
 
 def _lm_head(params, cfg, hidden):
@@ -179,11 +197,11 @@ def _embed(params, cfg, tokens):
     return params["embed"][tokens].to(getattr(torch, cfg.dtype))
 
 
-def _forward_hidden(params, cfg, tokens):
+def _forward_hidden(params, cfg, tokens, *, remat=False):
     B, T = tokens.shape
     x = _embed(params, cfg, tokens)
     positions = torch.arange(T, device=tokens.device)[None].expand(B, T)
-    x, aux = _run_segments(params, cfg, x, positions)
+    x, aux = _run_segments(params, cfg, x, positions, remat=remat)
     return apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps), aux
 
 
@@ -192,12 +210,27 @@ def hidden_states(params, cfg: ModelConfig, tokens) -> torch.Tensor:
     return _forward_hidden(params, cfg, tokens)[0]
 
 
-def forward(params, cfg: ModelConfig, tokens) -> LMOut:
+def forward(params, cfg: ModelConfig, tokens, *, remat: bool = False
+            ) -> LMOut:
     """Teacher-forced forward. tokens: (B, T) int -> logits (B, T, V) and
     the MoE layers' summed aux loss."""
-    hidden, aux = _forward_hidden(params, cfg, tokens)
+    hidden, aux = _forward_hidden(params, cfg, tokens, remat=remat)
     return LMOut(logits=_lm_head(params, cfg, hidden), aux_loss=aux,
                  hidden=hidden)
+
+
+def lm_loss(params, cfg: ModelConfig, tokens, *, remat: bool = True
+            ) -> torch.Tensor:
+    """Next-token cross-entropy over the (B, T - 1) targets, in float32,
+    plus the MoE aux loss (the reference's ``lm_loss`` without its MTP
+    branch: :func:`check_supported` refuses MTP). The head runs on the
+    first T - 1 positions only, which gives the same logits as the
+    reference's slice of the full (B, T, V) array without making it."""
+    hidden, aux = _forward_hidden(params, cfg, tokens, remat=remat)
+    logits = _lm_head(params, cfg, hidden[:, :-1]).float()
+    nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                          tokens[:, 1:].reshape(-1).long())
+    return nll + aux
 
 
 def prefill(params, cfg: ModelConfig, tokens) -> LMOut:

@@ -3,12 +3,18 @@
 
 On the card ``ops.rmsnorm``, ``ops.flash_attention`` and
 ``ops.selective_scan`` run the CUDA kernel forward inside a
-``torch.autograd.Function`` whose backward recomputes the plain version.
-Here the kernel each Function launches is swapped for a stand-in that
-returns the plain result computed under ``torch.no_grad()``, with no
-``grad_fn``, as the kernel's output has none; so every gradient below comes
-from the Function's backward alone. Inputs and output gradients are drawn
-with numpy from a seed and handed to both packages.
+``torch.autograd.Function``. The backward of the first two is a kernel too
+(``rmsnorm_bwd_cuda``, ``flash_attention_bwd_cuda``); the scan's
+recomputes the plain version. Here every kernel symbol a Function calls,
+forward and backward, is swapped for a stand-in that returns the plain
+result computed under ``torch.no_grad()``, with no ``grad_fn``, as the
+kernel's output has none; so every gradient below comes from the
+Function's backward alone, and the stand-ins count the calls. The
+backward kernels' plain versions (``ref.rmsnorm_bwd_ref``,
+``ref.flash_attention_bwd_ref``) are also held to ``jax.vjp`` directly, and
+the backward wrappers' refusals are reached without a card through a CPU
+tensor that reports ``cuda:0``. Inputs and output gradients are drawn with
+numpy from a seed and handed to both packages.
 
 Tolerances: rmsnorm ``1e-5*(1 + |g|)`` per element; flash attention 2e-5
 absolute (softmax sums in another order); the scan ``1e-5*(1 + m)``, m the
@@ -26,6 +32,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_bwd_cuda)
+from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda  # noqa: E402
 
 RMS_RTOL = 1e-5
 FLASH_ATOL = 2e-5
@@ -43,9 +52,10 @@ def one_thread():
 
 @pytest.fixture
 def stand_ins(monkeypatch):
-    """Each kernel symbol the Functions call, replaced by its plain version
-    under no_grad; the launches are counted."""
-    calls = {"rmsnorm": 0, "flash_attention": 0, "selective_scan": 0}
+    """Each kernel symbol the Functions call, forward and backward,
+    replaced by its plain version under no_grad; the calls are counted."""
+    calls = {"rmsnorm": 0, "flash_attention": 0, "selective_scan": 0,
+             "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
 
     def plain(name, fn):
         def kernel(*args, **kw):
@@ -57,12 +67,24 @@ def stand_ins(monkeypatch):
             return out
         return kernel
 
+    def flash(q, k, v, *, causal, window, return_lse=False):
+        o = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        if not return_lse:
+            return o
+        return o, ref.flash_attention_lse_ref(q, k, v, causal=causal,
+                                              window=window)
+
     monkeypatch.setattr(ops, "rmsnorm_cuda", plain(
         "rmsnorm", lambda x, s, *, eps: ref.rmsnorm_ref(x, s, eps)))
-    monkeypatch.setattr(ops, "flash_attention_cuda", plain(
-        "flash_attention", ref.flash_attention_ref))
+    monkeypatch.setattr(ops, "flash_attention_cuda",
+                        plain("flash_attention", flash))
     monkeypatch.setattr(ops, "selective_scan_cuda", plain(
         "selective_scan", ref.selective_scan_ref))
+    monkeypatch.setattr(ops, "rmsnorm_bwd_cuda", plain(
+        "rmsnorm_bwd", lambda x, s, g, *, eps: ref.rmsnorm_bwd_ref(
+            x, s, g, eps)))
+    monkeypatch.setattr(ops, "flash_attention_bwd_cuda", plain(
+        "flash_attention_bwd", ref.flash_attention_bwd_ref))
     return calls
 
 
@@ -84,7 +106,7 @@ def test_rmsnorm_function_gradients_match_reference(stand_ins, shape):
     tx, ts = _leaves(x, scale)
     out = ops._RMSNorm.apply(tx, ts, 1e-6)
     out.backward(torch.from_numpy(g))
-    assert stand_ins["rmsnorm"] == 1
+    assert stand_ins["rmsnorm"] == 1 and stand_ins["rmsnorm_bwd"] == 1
     _, vjp = jax.vjp(lambda a, b: jref.rmsnorm_ref(a, b, 1e-6),
                      jnp.asarray(x), jnp.asarray(scale))
     for name, got, want in zip(("x", "scale"), (tx.grad, ts.grad),
@@ -110,6 +132,7 @@ def test_flash_function_gradients_match_reference(stand_ins, causal, window):
     out = ops._FlashAttention.apply(tq, tk, tv, causal, window)
     out.backward(torch.from_numpy(g))
     assert stand_ins["flash_attention"] == 1
+    assert stand_ins["flash_attention_bwd"] == 1
 
     def f(a, b, c):
         rep = Hq // Hkv
@@ -216,8 +239,181 @@ def test_dispatcher_builds_no_graph_under_no_grad(stand_ins, monkeypatch,
     out = getattr(ops, name)(*args, **kw)
     outs = out if isinstance(out, tuple) else (out,)
     assert stand_ins[name] == 2
+    if name != "selective_scan":
+        assert stand_ins[name + "_bwd"] == 0
     assert all(type(t.grad_fn).__name__ == FUNCTIONS[name] + "Backward"
                for t in outs)
     sum(t.sum() for t in outs).backward()
     assert all(a.grad is not None and bool(a.grad.abs().sum() > 0)
                for a in args)
+    if name != "selective_scan":        # its backward is a recompute
+        assert stand_ins[name + "_bwd"] == 1
+
+
+# ------------------------------------------- the backward plain versions
+
+@pytest.mark.parametrize("shape", [(5, 64), (2, 3, 130), (1, 1024)])
+def test_rmsnorm_bwd_ref_matches_reference_vjp(shape):
+    rng = np.random.default_rng(sum(shape) + 1)
+    x, scale, g = _f32(rng, *shape), _f32(rng, shape[-1]), _f32(rng, *shape)
+    got = ref.rmsnorm_bwd_ref(torch.from_numpy(x), torch.from_numpy(scale),
+                              torch.from_numpy(g), 1e-6)
+    _, vjp = jax.vjp(lambda a, b: jref.rmsnorm_ref(a, b, 1e-6),
+                     jnp.asarray(x), jnp.asarray(scale))
+    for name, t, want in zip(("x", "scale"), got, vjp(jnp.asarray(g))):
+        want = np.asarray(want)
+        assert t.shape == want.shape
+        over = np.abs(t.numpy() - want) / (RMS_RTOL * (1 + np.abs(want)))
+        assert np.all(over <= 1), f"d{name}: {float(over.max())}x"
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 7),
+                                           (False, 0)])
+def test_flash_bwd_ref_matches_reference_vjp(causal, window):
+    """The backward's formula (P from lse, delta = <do, o>) on the plain
+    forward's o and lse, GQA 2:1, against the reference's vjp."""
+    rng = np.random.default_rng(int(causal) * 10 + window + 1)
+    B, T, Hq, Hkv, D = 2, 19, 4, 2, 64
+    q, k, v = (_f32(rng, B, T, H, D) for H in (Hq, Hkv, Hkv))
+    g = _f32(rng, B, T, Hq, D)
+    tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+    o = ref.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+    lse = ref.flash_attention_lse_ref(tq, tk, tv, causal=causal,
+                                      window=window)
+    got = ref.flash_attention_bwd_ref(tq, tk, tv, o, lse, tg, causal=causal,
+                                      window=window)
+
+    def f(a, b, c):
+        rep = Hq // Hkv
+        return jref.flash_attention_ref(
+            a, jnp.repeat(b, rep, axis=2), jnp.repeat(c, rep, axis=2),
+            causal=causal, window=window)
+
+    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for name, t, want in zip("qkv", got, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(t.numpy(), np.asarray(want), rtol=0,
+                                   atol=FLASH_ATOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 5),
+                                           (False, 3)])
+def test_flash_lse_ref_is_the_masked_logsumexp(causal, window):
+    """lse against a float64 numpy log-sum-exp over each row's seen keys,
+    within 1e-5*(1 + |lse|)."""
+    rng = np.random.default_rng(7 + window)
+    B, T, Hq, Hkv, D = 1, 13, 4, 1, 64
+    q, k, v = (_f32(rng, B, T, H, D) for H in (Hq, Hkv, Hkv))
+    got = ref.flash_attention_lse_ref(*(torch.from_numpy(a) for a in
+                                        (q, k, v)), causal=causal,
+                                      window=window).numpy()
+    s = np.einsum("bqhd,bkd->bhqk", q.astype(np.float64),
+                  k[:, :, 0].astype(np.float64)) / np.sqrt(D)
+    qpos, kpos = np.arange(T)[:, None], np.arange(T)[None, :]
+    seen = np.ones((T, T), bool)
+    if causal:
+        seen &= kpos <= qpos
+    if window:
+        seen &= kpos > qpos - window
+    top = np.where(seen, s, -np.inf).max(-1, keepdims=True)
+    want = (top + np.log(np.where(seen, np.exp(s - top), 0).sum(
+        -1, keepdims=True)))[..., 0]
+    assert got.shape == (B, Hq, T)
+    assert np.all(np.abs(got - want) <= 1e-5 * (1 + np.abs(want)))
+
+
+# ------------------------------------------ the backward wrappers' refusals
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on cuda:0, to reach the wrappers'
+    checks past the device test without a card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+    def get_device(self):
+        return 0
+
+
+def _card(*shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype).as_subclass(_OnCard)
+
+
+def _flash_args(**over):
+    """q, k, v, o, lse, do of a valid (1, 4, 2/1, 64) call, ``over``
+    replacing some."""
+    args = dict(q=_card(1, 4, 2, 64), k=_card(1, 4, 1, 64),
+                v=_card(1, 4, 1, 64), o=_card(1, 4, 2, 64),
+                lse=_card(1, 2, 4), do=_card(1, 4, 2, 64))
+    args.update(over)
+    return args
+
+
+def _noncontiguous(*shape):
+    """Every other float of a buffer twice as wide."""
+    return torch.zeros(shape[:-1] + (2 * shape[-1],))[..., ::2] \
+        .as_subclass(_OnCard)
+
+
+BWD_REFUSALS = [
+    ("flash_cpu", lambda: flash_attention_bwd_cuda(**_flash_args(
+        q=torch.zeros(1, 4, 2, 64))),
+     ValueError, "q must lie on a CUDA device, got cpu"),
+    ("flash_dtype", lambda: flash_attention_bwd_cuda(**_flash_args(
+        k=_card(1, 4, 1, 64, dtype=torch.float64))),
+     TypeError, "k must be torch.float32, got torch.float64"),
+    ("flash_contiguous", lambda: flash_attention_bwd_cuda(**_flash_args(
+        do=_noncontiguous(1, 4, 2, 64))),
+     ValueError, "do must be contiguous"),
+    ("flash_head_dim", lambda: flash_attention_bwd_cuda(
+        **{n: _card(*t.shape[:-1], 32) if n != "lse" else t
+           for n, t in _flash_args().items()}),
+     ValueError, "the kernel takes head dims (64, 128), got 32"),
+    ("flash_o_shape", lambda: flash_attention_bwd_cuda(**_flash_args(
+        o=_card(1, 5, 2, 64))),
+     ValueError, "o and do must have q's shape (1, 4, 2, 64), got "
+     "(1, 5, 2, 64) and (1, 4, 2, 64)"),
+    ("flash_kv_length", lambda: flash_attention_bwd_cuda(**_flash_args(
+        k=_card(1, 5, 1, 64), v=_card(1, 5, 1, 64))),
+     ValueError, "k and v must be (B, T, Hkv, D) beside q (1, 4, 2, 64), "
+     "got (1, 5, 1, 64) and (1, 5, 1, 64)"),
+    ("flash_groups", lambda: flash_attention_bwd_cuda(**_flash_args(
+        q=_card(1, 4, 3, 64), o=_card(1, 4, 3, 64), do=_card(1, 4, 3, 64),
+        k=_card(1, 4, 2, 64), v=_card(1, 4, 2, 64), lse=_card(1, 3, 4))),
+     ValueError, "3 query heads do not share 2 KV heads"),
+    ("flash_lse_shape", lambda: flash_attention_bwd_cuda(**_flash_args(
+        lse=_card(1, 4, 2))),
+     ValueError, "lse must be (B, Hq, T) = (1, 2, 4), got (1, 4, 2)"),
+    ("rms_cpu", lambda: rmsnorm_bwd_cuda(torch.zeros(3, 8), _card(8),
+                                         _card(3, 8)),
+     ValueError, "x must lie on a CUDA device, got cpu"),
+    ("rms_dtype", lambda: rmsnorm_bwd_cuda(
+        _card(3, 8), _card(8), _card(3, 8, dtype=torch.float64)),
+     TypeError, "g must be torch.float32, got torch.float64"),
+    ("rms_contiguous", lambda: rmsnorm_bwd_cuda(
+        _noncontiguous(3, 8), _card(8), _card(3, 8)),
+     ValueError, "x must be contiguous"),
+    ("rms_g_shape", lambda: rmsnorm_bwd_cuda(_card(3, 8), _card(8),
+                                             _card(3, 9)),
+     ValueError, "x and g must be (..., d) and scale (d,), got (3, 8), "
+     "(3, 9) and (8,)"),
+    ("rms_scale_shape", lambda: rmsnorm_bwd_cuda(_card(3, 8), _card(9),
+                                                 _card(3, 8)),
+     ValueError, "x and g must be (..., d) and scale (d,), got (3, 8), "
+     "(3, 8) and (9,)"),
+]
+
+
+@pytest.mark.parametrize("call,exc,message",
+                         [c[1:] for c in BWD_REFUSALS],
+                         ids=[c[0] for c in BWD_REFUSALS])
+def test_bwd_wrappers_refuse_with_their_messages(call, exc, message):
+    """The backward wrappers raise, before any build or launch, on what
+    their kernels do not take."""
+    with pytest.raises(exc) as err:
+        call()
+    assert str(err.value) == message

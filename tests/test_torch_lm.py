@@ -380,6 +380,9 @@ def test_lm_modules_import_neither_jax_nor_reference():
     code = (
         "import sys\n"
         "import repro_torch.launch.serve, repro_torch.convert\n"
+        "import repro_torch.launch.train, repro_torch.optim.schedules\n"
+        "import repro_torch.checkpoint, repro_torch.checkpoint.npz\n"
+        "import repro_torch.train_lm_on_codes\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n")
