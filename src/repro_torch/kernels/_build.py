@@ -70,10 +70,11 @@ _SIGNATURES = {
     # scale, device, stream
     "rt_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _F, _I, _P),
-    # q, k, v, o, lse, do, delta, dq, dk, dv, B, T, Hq, Hkv, D, causal,
-    # window, scale, device, stream
-    "rt_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                               _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, o, lse, do, scratch, scratch floats, dq, dk, dv, B, T, Hq,
+    # Hkv, D, causal, window, scale, qbegin, qend, device, stream
+    "rt_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                               _P),
     # decay, inp, c, h0, y, h_last, B, T, di, N, device, stream
     "rt_selective_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }

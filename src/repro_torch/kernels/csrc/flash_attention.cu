@@ -74,6 +74,7 @@
 #include <cuda_runtime.h>
 
 #include "launch.cuh"
+#include "tf32x3.cuh"
 
 #include <cstdint>
 
@@ -96,44 +97,11 @@ struct Tile {
   static constexpr size_t bytes = sizeof(float) * (kQ + 2 * kK + 2 * kV);
 };
 
-// x ~ hi + lo, both TF32. hi is x rounded to nearest, ties away from zero:
-// the value cvt.rna.tf32.f32 gives for every non-NaN x, in two integer
-// operations (ptxas expands the cvt into a longer sequence with NaN tests,
-// and the split runs ~10 times a product). The remainder x - hi is exact in
-// FP32 and is cut to TF32 toward zero, as the tensor core reads an FP32
-// register (it drops the low 13 bits). Rounding lo to nearest as well would
-// move a product by < 2^-22 of itself, cost two more operations, and carry
-// the GPU's canonical NaN 0x7fffffff into the sign bit, so a NaN in q, k or
-// v would come out as a number; cut toward zero, a NaN stays a NaN in lo.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
-}
-
-// d += a (16 x 8, row) * b (8 x 8, col), TF32 in, FP32 accumulate
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
-               "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
-}
+using tf32x3::cp_async16;
+using tf32x3::cp_async_commit;
+using tf32x3::cp_async_wait;
+using tf32x3::mma;
+using tf32x3::split;
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -218,7 +186,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int kt = kt_begin, stage = 0; kt <= kt_end; ++kt, stage ^= 1) {
     if (kt < kt_end) load_tile(kt + 1, stage ^ 1);
     cp_async_commit();
-    cp_async_wait_one();                 // tile kt has landed
+    cp_async_wait<1>();                  // tile kt has landed
     __syncthreads();
     const int k0 = kt * BK;
     // a tile masked for all 16 rows of this warp changes nothing (above)

@@ -60,6 +60,54 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
+#: the backward's device scratch, at most (or one 128-row range's, if more)
+SCRATCH_BYTES = 288 << 20
+_DQ_ROWS = 128                           # the dQ kernel's rows a block
+
+
+def _ds_blocks(qb0: int, qb1: int, nb: int, causal: bool) -> int:
+    """The backward's 16 x 16 dS blocks of query blocks [qb0, qb1) of one
+    (b, query head), nb blocks a side: those a query can see, the lower
+    triangle when causal (``csrc/flash_attention_bwd.cu::ds_rows``)."""
+    if causal:
+        return (qb1 * (qb1 + 1) - qb0 * (qb0 + 1)) // 2
+    return (qb1 - qb0) * nb
+
+
+def bwd_plan(B: int, T: int, Hq: int, causal: bool):
+    """How the backward keeps its scratch within :data:`SCRATCH_BYTES`:
+    (batch elements a launch, the query row ranges each batch slice takes
+    in turn, the scratch's floats). The scratch holds each row's delta =
+    <do, o>, rounded up to 4 floats, then the launch's dS in 16 x 16 blocks
+    of 256 floats. The whole batch in one launch where it fits (273.2 MB at
+    qwen3's training shape); else as many batch elements a launch as fit;
+    else one a launch over ranges of whole 128-row groups, each range as
+    long as fits, at least one group (a causal group of 128 rows over T
+    keys takes Hq * T / 2 KB: 268 MB at 16 heads and T = 32,768)."""
+    nb = -(-T // 16)
+
+    def floats(bc, r0, r1):
+        return (-(-bc * Hq * T // 4) * 4
+                + bc * Hq * 256 * _ds_blocks(r0 // 16, -(-r1 // 16), nb,
+                                             causal))
+
+    budget = SCRATCH_BYTES // 4
+    if floats(B, 0, T) <= budget:
+        return B, [(0, T)], floats(B, 0, T)
+    whole = floats(1, 0, T)
+    if whole <= budget:
+        bc = budget // whole
+        return bc, [(0, T)], floats(bc, 0, T)
+    bounds, r0 = [], 0
+    while r0 < T:
+        r1 = min(T, r0 + _DQ_ROWS)
+        while r1 < T and floats(1, r0, min(T, r1 + _DQ_ROWS)) <= budget:
+            r1 = min(T, r1 + _DQ_ROWS)
+        bounds.append((r0, r1))
+        r0 = r1
+    return 1, bounds, max(floats(1, r0, r1) for r0, r1 in bounds)
+
+
 def _refuse_bwd(q, k, v, o, lse, do, window):
     """Raise, with its message, for the first argument the backward kernel
     does not take."""
@@ -100,6 +148,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     T), float32 and contiguous on one card -> (dq, dk, dv) in the shapes
     of q, k and v. Queries and keys share T. Each KV head's gradient sums
     its query heads' in a fixed order: the same bits run to run. The
+    kernels pass dS from the dK/dV kernel to the dQ kernel through a
+    scratch of at most :data:`SCRATCH_BYTES` (or one 128-row range's),
+    freed on return: past it the call launches the kernels on slices of
+    the batch, or over ranges of query rows, as :func:`bwd_plan` says. The
     arguments are checked in one pass; the messages are built only for a
     refusal (_refuse_bwd)."""
     dev = q.get_device()
@@ -119,11 +171,19 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     if B and T and Hq:
-        delta = torch.empty_like(lse)        # scratch: <do, o> a row
-        _build.check(_build.library().rt_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, T, Hq, Hkv, D,
-            int(bool(causal)), int(window), 1.0 / math.sqrt(D), dev,
-            _build.stream_of(q)), "flash_attention_bwd")
+        bc, bounds, floats = bwd_plan(B, T, Hq, bool(causal))
+        scratch = lse.new_empty(floats)
+        fn, stream = _build.library().rt_flash_attention_bwd, \
+            _build.stream_of(q)
+        for b0 in range(0, B, bc):
+            n = min(bc, B - b0)
+            # the slice's first bytes of each (B, ...) tensor
+            at = [t.data_ptr() + b0 * (t.numel() // B) * 4
+                  for t in (q, k, v, o, lse, do, dq, dk, dv)]
+            for r0, r1 in bounds:
+                _build.check(fn(
+                    *at[:6], scratch.data_ptr(), floats, *at[6:], n, T, Hq,
+                    Hkv, D, int(bool(causal)), int(window),
+                    1.0 / math.sqrt(D), r0, r1, dev, stream),
+                    "flash_attention_bwd")
     return dq, dk, dv
