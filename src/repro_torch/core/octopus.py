@@ -22,6 +22,7 @@ from __future__ import annotations
 import copy
 from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
@@ -244,8 +245,12 @@ def server_merge_codebooks(server: ServerState, client_codebooks,
     cbs = as_stacked(client_codebooks, cur.device)
     w = as_stacked(client_counts, cur.device)
     if staleness is not None:
-        st = torch.as_tensor(staleness, device=cur.device)
-        w = w * torch.pow(staleness_decay, st.to(torch.float32))[:, None]
+        # decay ** staleness formed on the host: the card's pow is not
+        # correctly rounded, so the weights would differ card to CPU
+        st = torch.as_tensor(staleness).detach().cpu().numpy()
+        decay = np.float32(staleness_decay) ** st.astype(np.float32)
+        w = w * torch.from_numpy(np.asarray(decay, np.float32)) \
+            .to(cur.device)[:, None]
     tot = w.sum(dim=0)                                        # (K,)
     merged = torch.einsum("ck,ckm->km", w / tot[None].clamp(min=1e-9), cbs)
     # atoms with no effective contribution keep the current dictionary

@@ -1,1 +1,42 @@
-"""Codebook registry and code store (port of ``repro.server``)."""
+"""Continuous-ingest code-server runtime (port of ``repro.server``).
+
+  store      — CodeStore: one capacity-bounded, versioned, lazily decoded
+               ring buffer of packed transmissions; ShardedCodeStore:
+               independent ring buffers per (codebook version, client
+               shard) partition
+  registry   — CodebookRegistry: immutable per-merge dictionary snapshots,
+               the staleness-weighted Step 5 merge and rolling
+               MigrationWindows (keep / retire / reencode)
+  scheduler  — RoundScheduler: partial participation, stragglers, drops,
+               churn and Poisson arrivals, the reference's event stream
+               bit for bit from the same key
+  multitask  — MultiTaskTrainer: N downstream heads from ONE bulk decode
+  runtime    — ContinuousIngestService: clocked, admission-controlled
+               ingest with background bulk decode; AsyncCodeServer, the
+               round-quantized shim over it
+
+Not ported yet (``ROADMAP.md`` Queue 1 item 4b): ``persist``
+(``ServerPersistence``), and with it the service's ``persist=`` and
+``recover``.
+"""
+from repro_torch.wire.payload import CodePayload
+from repro_torch.wire.session import AdmissionResult, OctopusServer
+
+from .multitask import MultiTaskTrainer, TaskSpec
+from .registry import (MIGRATION_POLICIES, CodebookRegistry,
+                       MigrationWindow)
+from .runtime import (AsyncCodeServer, BulkDecodePolicy,
+                      ContinuousIngestService, RoundStats, TickStats,
+                      UplinkQueue)
+from .scheduler import (STANDARD_SCENARIOS, DiurnalProfile, RoundEvent,
+                        RoundScheduler, Scenario, SchedulerConfig)
+from .store import CodeStore, ShardedCodeStore, StoreRecord
+
+__all__ = ["AdmissionResult", "AsyncCodeServer", "BulkDecodePolicy",
+           "CodePayload", "CodeStore", "CodebookRegistry",
+           "ContinuousIngestService", "DiurnalProfile",
+           "MIGRATION_POLICIES", "MigrationWindow", "MultiTaskTrainer",
+           "OctopusServer", "RoundEvent", "RoundScheduler", "RoundStats",
+           "STANDARD_SCENARIOS", "Scenario", "SchedulerConfig",
+           "ShardedCodeStore", "StoreRecord", "TaskSpec", "TickStats",
+           "UplinkQueue"]

@@ -4,23 +4,24 @@
             fused encode dispatch a round; the round's uplink is a
             ``repro_torch.wire.payload.CodePayload``
   cohort  — cohort-streamed population rounds with the exactly associative
-            Step 5 stats merge
+            Step 5 stats merge, scheduler-driven traffic (``run_traffic``)
+            and open-ended continuous-ingest traffic (``run_continuous``)
 
-Not ported yet (``ROADMAP.md``): the cohort engine's scheduler-driven and
-continuous-ingest traffic (``run_traffic``, ``run_continuous``, with their
-``TrafficRound`` and ``ContinuousTick`` ledgers) and the chaos plane
-(``faults``), which wait for the server runtime. The retired
-``IngestBuffer`` and ``PackedCodes`` raise on import, as in the reference.
+Not ported yet (``ROADMAP.md`` Queue 1 item 4b): the chaos plane
+(``faults``). The retired ``IngestBuffer`` and ``PackedCodes`` raise on
+import, as in the reference.
 """
 from repro_torch.wire.payload import CodePayload
 
-from .cohort import CohortEngine, CohortPlan, CohortRound
+from .cohort import (CohortEngine, CohortPlan, CohortRound, ContinuousTick,
+                     TrafficRound)
 from .engine import (SimEngine, client_batch_size, replicate_clients,
                      stack_clients, unstack_clients)
 
 __all__ = ["CodePayload", "CohortEngine", "CohortPlan", "CohortRound",
-           "SimEngine", "client_batch_size", "replicate_clients",
-           "stack_clients", "unstack_clients"]
+           "ContinuousTick", "SimEngine", "TrafficRound",
+           "client_batch_size", "replicate_clients", "stack_clients",
+           "unstack_clients"]
 
 _TOMBSTONES = {
     "IngestBuffer": "repro_torch.server.store.CodeStore",

@@ -21,9 +21,15 @@ Clients deploy fresh from the server each round. A client's round is the
 same bits in any cohort, singletons included (the engine's per-client
 encoder passes, the encode kernel's per-record statistics and the
 per-client EMA), so the merged statistics are grouping-invariant on the
-card as on the CPU. The scheduler-driven ``run_traffic`` and the
-continuous-ingest ``run_continuous`` wait for the server runtime
-(``ROADMAP.md``).
+card as on the CPU.
+
+:meth:`CohortEngine.run_traffic` drives rounds from a ``RoundScheduler``
+into an ``OctopusServer`` over a shared ``UplinkQueue`` (cohorts carved
+WITHIN each (delay, dropped) delivery group, so every payload has one
+fate); :meth:`CohortEngine.run_continuous` offers open-ended arrivals to a
+``ContinuousIngestService`` a cohort payload at a time, so admission
+decides which cohorts reach the Step 5 merge. Both run ONE fused
+``encode_codes`` a cohort.
 
 Typical use::
 
@@ -108,6 +114,37 @@ class CohortRound(NamedTuple):
     nbytes: int                         # Σ measured cohort uplink bytes
 
 
+class TrafficRound(NamedTuple):
+    """Per-round ledger of a scheduler-driven traffic run."""
+    round: int
+    n_participants: int
+    n_cohorts: int
+    bytes_sent: int
+    bytes_delivered: int
+    merged_version: Optional[int]
+
+
+class ContinuousTick(NamedTuple):
+    """Per-tick ledger of an open-ended continuous-ingest run."""
+    tick: int
+    n_participants: int
+    n_cohorts: int
+    bytes_offered: int       # measured bytes at the door (incl. refusals)
+    bytes_delivered: int     # landed in the store this tick
+    n_rejected: int          # admission rejections this tick
+    n_deferred: int          # admissions answered "back off"
+    merged_version: Optional[int]
+
+
+def _fate_groups(ev) -> dict:
+    """Participants grouped by (straggler delay, dropped), slot order."""
+    groups: dict = {}
+    for j, slot in enumerate(ev.participants):
+        key = (int(ev.delays[j]), bool(ev.dropped[j]))
+        groups.setdefault(key, []).append(int(slot))
+    return groups
+
+
 class CohortEngine:
     """Streams population rounds cohort by cohort through ONE SimEngine."""
 
@@ -157,3 +194,120 @@ class CohortEngine:
         return CohortRound(payloads=tuple(payloads), stats=stats,
                            n_clients=plan.n_clients,
                            nbytes=sum(p.nbytes for p in payloads))
+
+    # ------------------------------------------------------------ traffic
+
+    def run_traffic(self, wire, scheduler, data_fn: DataFn, *,
+                    cohort_size: int, n_rounds: int, merge_every: int = 0,
+                    labels_fn: Optional[DataFn] = None,
+                    queue=None) -> List[TrafficRound]:
+        """Scheduler-driven rounds streaming into ``wire`` (an
+        ``OctopusServer``): each round one ``scheduler.step()``,
+        participants carved into cohorts within each (delay, dropped)
+        group, payloads on the shared ``UplinkQueue``, due payloads
+        ingested; every ``merge_every`` rounds the accumulated stats of
+        the delivered-or-in-flight cohorts finish the Step 5 merge
+        (``wire.merge_stats``) and later cohorts pack under the new
+        version. Dropped cohorts lose their Step 5 contribution."""
+        from repro_torch.server.runtime import UplinkQueue
+        if queue is None:
+            queue = UplinkQueue()
+        acc: Optional[MergeStats] = None
+        history: List[TrafficRound] = []
+        for _ in range(n_rounds):
+            rec = _obs.active()
+            t0 = time.perf_counter() if rec is not None else 0.0
+            ev = scheduler.step()
+            sent = n_cohorts = 0
+            for (delay, dropped), slots in sorted(_fate_groups(ev).items()):
+                plan = CohortPlan.build(slots, cohort_size)
+                out = self.round(wire.state, plan, data_fn,
+                                 version=wire.version, labels_fn=labels_fn,
+                                 round_idx=ev.round)
+                for payload, cohort in zip(out.payloads, plan.cohorts):
+                    sent += queue.send(payload, round=ev.round,
+                                       delay=delay, dropped=dropped,
+                                       client_ids=cohort)
+                if not dropped:
+                    acc = out.stats if acc is None else \
+                        merge_stats_add(acc, out.stats)
+                n_cohorts += plan.n_cohorts
+            delivered, _ = queue.deliver(wire, ev.round)
+            merged_version = None
+            if merge_every and (ev.round + 1) % merge_every == 0 \
+                    and acc is not None:
+                merged_version = wire.merge_stats(acc)
+                acc = None
+            history.append(TrafficRound(
+                round=ev.round, n_participants=int(ev.participants.size),
+                n_cohorts=n_cohorts, bytes_sent=sent,
+                bytes_delivered=delivered, merged_version=merged_version))
+            if rec is not None:
+                dur_ms = (time.perf_counter() - t0) * 1e3
+                rec.event("round", round=ev.round,
+                          n_participants=int(ev.participants.size),
+                          n_cohorts=n_cohorts, bytes_sent=sent,
+                          bytes_delivered=delivered,
+                          queue_depth=len(queue),
+                          merged_version=merged_version, dur_ms=dur_ms)
+                rec.metrics.observe("round_ms", dur_ms)
+                rec.metrics.set_gauge("uplink_queue_depth", len(queue))
+        return history
+
+    def run_continuous(self, service, scheduler, data_fn: DataFn, *,
+                       cohort_size: int, n_ticks: int, merge_every: int = 0,
+                       labels_fn: Optional[DataFn] = None,
+                       migration_policy: Optional[str] = None
+                       ) -> List[ContinuousTick]:
+        """Open-ended traffic into a ``ContinuousIngestService``: each tick
+        the scheduler draws the arrivals (``SchedulerConfig.rate`` for
+        Poisson arrivals), they are carved into cohorts per (delay,
+        dropped) fate and OFFERED one cohort payload at a time, and the
+        service clock ticks once. Only admitted cohorts reach the Step 5
+        merge. Every ``merge_every`` ticks the stats finish the merge; with
+        ``migration_policy`` each merge also completes any open migration
+        window and opens a fresh ``latest-1 -> latest`` one."""
+        wire = service.wire
+        acc: Optional[MergeStats] = None
+        history: List[ContinuousTick] = []
+        for _ in range(n_ticks):
+            ev = scheduler.step()
+            offered = n_cohorts = n_rej = n_def = 0
+            for (delay, dropped), slots in sorted(_fate_groups(ev).items()):
+                plan = CohortPlan.build(slots, cohort_size)
+                for cohort in plan.cohorts:
+                    out = self.round(wire.state,
+                                     CohortPlan.from_groups([cohort]),
+                                     data_fn, version=wire.version,
+                                     labels_fn=labels_fn,
+                                     round_idx=ev.round)
+                    res = service.offer(out.payloads[0], client_ids=cohort,
+                                        delay=delay, dropped=dropped)
+                    offered += res.nbytes
+                    if res.verdict == "rejected":
+                        n_rej += 1
+                    elif res.verdict != "duplicate":
+                        if res.verdict == "deferred":
+                            n_def += 1
+                        acc = out.stats if acc is None else \
+                            merge_stats_add(acc, out.stats)
+                n_cohorts += plan.n_cohorts
+            merged_version = None
+            if merge_every and (ev.round + 1) % merge_every == 0 \
+                    and acc is not None:
+                merged_version = service.merge_stats(acc)
+                acc = None
+                if migration_policy is not None:
+                    if wire.registry.migration is not None:
+                        service.complete_migration()
+                    service.begin_migration(policy=migration_policy)
+            ts = service.tick(
+                merged_version=merged_version,
+                extra_fields={"n_participants": int(ev.participants.size),
+                              "n_cohorts": n_cohorts})
+            history.append(ContinuousTick(
+                tick=ts.tick, n_participants=int(ev.participants.size),
+                n_cohorts=n_cohorts, bytes_offered=offered,
+                bytes_delivered=ts.bytes_delivered, n_rejected=n_rej,
+                n_deferred=n_def, merged_version=merged_version))
+        return history

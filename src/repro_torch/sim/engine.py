@@ -36,14 +36,17 @@ Typical use::
     clients, packed = eng.round(clients, data)     # data: (C, B, ...)
     server = eng.merge_into_server(server, clients)   # Step 5 tail
 
-``round_indices`` (the async code server's entry) waits for the server
-runtime, and ``mesh=`` for the process-group port (``ROADMAP.md``).
+``round_indices`` is the async code server's entry: Steps 2-5 a client,
+returning the unpacked int32 codes so the server can split them into
+delivery groups. ``mesh=`` waits for the process-group port
+(``ROADMAP.md``).
 """
 from __future__ import annotations
 
 import copy
 from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import octopus as OC
@@ -116,6 +119,47 @@ def unstack_clients(batch: OC.ClientState) -> List[OC.ClientState]:
 
 def client_batch_size(batch: OC.ClientState) -> int:
     return int(batch.params["codebook"].shape[0])
+
+
+def select_clients(batch: OC.ClientState, ids) -> OC.ClientState:
+    """The stacked sub-population of rows ``ids`` (copies of their
+    codebooks and EMA fields; their own modules, or the shared ones)."""
+    ids = [int(i) for i in np.asarray(ids).reshape(-1)]
+    rows = torch.as_tensor(ids, dtype=torch.long,
+                           device=batch.params["codebook"].device)
+    params = {"codebook": batch.params["codebook"][rows]}
+    for key in ("encoder", "decoder"):
+        m = batch.params[key]
+        params[key] = m if isinstance(m, torch.nn.Module) \
+            else tuple(m[i] for i in ids)
+    return OC.ClientState(params=params,
+                          ema=EMAState(*(f[rows] for f in batch.ema)),
+                          step=batch.step[rows.cpu()])
+
+
+def scatter_clients(batch: OC.ClientState, ids, sub: OC.ClientState
+                    ) -> OC.ClientState:
+    """``batch`` with rows ``ids`` replaced by the stacked ``sub``."""
+    ids = [int(i) for i in np.asarray(ids).reshape(-1)]
+    cb = batch.params["codebook"]
+    rows = torch.as_tensor(ids, dtype=torch.long, device=cb.device)
+    params = {"codebook": cb.index_copy(0, rows, sub.params["codebook"])}
+    for key in ("encoder", "decoder"):
+        m, new = batch.params[key], sub.params[key]
+        if isinstance(m, torch.nn.Module):
+            if new is not m:
+                raise ValueError("a population with shared modules cannot "
+                                 "take per-client ones")
+            params[key] = m
+        else:
+            own = list(m)
+            for j, i in enumerate(ids):
+                own[i] = new if isinstance(new, torch.nn.Module) else new[j]
+            params[key] = tuple(own)
+    ema = EMAState(*(f.index_copy(0, rows, g)
+                     for f, g in zip(batch.ema, sub.ema)))
+    step = batch.step.index_copy(0, rows.cpu(), sub.step.to(batch.step.dtype))
+    return OC.ClientState(params=params, ema=ema, step=step)
 
 
 # ------------------------------------------------------------------ engine
@@ -201,6 +245,51 @@ class SimEngine:
             words, bits=self.bits, shape=(C,) + index_shape(cfg, z_shape),
             n_records=C, version=int(version), labels=labels,
             n_samples=C * B, privatized=True)
+
+    def round_indices(self, clients: OC.ClientState, data
+                      ) -> Tuple[OC.ClientState, torch.Tensor]:
+        """Steps 2-5 for the (sub)population, returning the UNPACKED int32
+        code indices (C, B, T[, n_c]).
+
+        The async code server splits participants into delivery groups
+        (stragglers, drops, per-version lanes) and packs each group on its
+        own, so this returns codes instead of one population payload. A
+        client's round is the reference's ``client_round``: fine-tuning,
+        one encoder pass, its codes through ``ops.vq_nearest`` (or the
+        GSVQ search), the Eq. 7-8 statistics of those codes and the EMA
+        refresh, each at one client's shapes.
+        """
+        cfg = self.cfg
+        C = client_batch_size(clients)
+        cbs = clients.params["codebook"]
+        x = torch.as_tensor(data, dtype=torch.float32, device=cbs.device)
+        if x.shape[0] != C:
+            raise ValueError(f"data has {x.shape[0]} client batches for "
+                             f"{C} clients")
+        own = {}
+        for key in ("encoder", "decoder"):
+            m = clients.params[key]
+            if isinstance(m, torch.nn.Module) and self.n_local_steps > 0:
+                m = tuple(copy.deepcopy(m) for _ in range(C))  # they train
+            own[key] = m
+        pop = clients._replace(params={**clients.params, **own})
+        codes, emas, steps = [], [], []
+        for i in range(C):
+            client, z = OC.client_finetune_encode(
+                client_state(pop, i), cfg, x[i], lr=self.lr,
+                n_local_steps=self.n_local_steps)
+            idx = OC.quantize_indices(cfg, z, cbs[i])
+            stats = OC.refresh_stats(cfg, z, idx)
+            emas.append(ema_update_from_stats(client.ema, *stats,
+                                              gamma=self.gamma))
+            codes.append(idx.to(torch.int32).reshape(index_shape(cfg,
+                                                                 z.shape)))
+            steps.append(int(client.step))
+        ema = EMAState(*(torch.stack(f) for f in zip(*emas)))
+        params = {**own, "codebook": ema.codebook}
+        return OC.ClientState(params=params, ema=ema,
+                              step=torch.tensor(steps, dtype=torch.int64)), \
+            torch.stack(codes)
 
     # ------------------------------------------------------- server side
 
