@@ -101,7 +101,12 @@ def to_arrays(tree) -> Dict[str, np.ndarray]:
 
 def save_pytree(path: str, tree, *, metadata: Optional[dict] = None):
     """Atomic save: write a temporary file beside ``path``, then rename."""
-    arrays = to_arrays(tree)
+    save_arrays(path, to_arrays(tree), metadata=metadata)
+
+
+def save_arrays(path: str, arrays: Dict[str, np.ndarray], *,
+                metadata: Optional[dict] = None):
+    """Atomic save of path-keyed arrays (see :func:`save_pytree`)."""
     folder = os.path.dirname(path) or "."
     os.makedirs(folder, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=folder, suffix=".npz.tmp")
@@ -162,6 +167,21 @@ def load_pytree(path: str, like) -> Any:
         state = state._replace(opt=opt._replace(mu=leaves(opt.mu),
                                                 nu=leaves(opt.nu)))
     return state
+
+
+def save_server_state(path: str, state) -> None:
+    """A DVQ-AE ``ServerState`` in the reference's ``.state.npz`` layout
+    (``convert.server_state_to_numpy``), written atomically."""
+    from repro_torch.convert import server_state_to_numpy
+    save_arrays(path, server_state_to_numpy(state))
+
+
+def load_server_state(path: str, cfg, *, device=None):
+    """A ``.state.npz`` written by either package -> a ``ServerState`` on
+    ``device`` (cuda unless ``device="cpu"``)."""
+    from repro_torch.convert import server_state_from_numpy
+    with np.load(path) as data:
+        return server_state_from_numpy(dict(data), cfg, device=device)
 
 
 def _checkpoints(ckpt_dir: str):

@@ -64,6 +64,13 @@ def to_reference_layout(t: torch.Tensor) -> np.ndarray:
     return arr.transpose(_TO_REF[arr.ndim]) if arr.ndim in _TO_REF else arr
 
 
+def _to_torch_layout(arr: np.ndarray) -> np.ndarray:
+    """A reference array (HWIO, HIO or as is) -> the port's layout."""
+    arr = np.asarray(arr, dtype=np.float32)
+    return arr.transpose(_TO_TORCH[arr.ndim]) if arr.ndim in _TO_TORCH \
+        else arr
+
+
 def params_to_numpy(params) -> Dict[str, np.ndarray]:
     """The port's parameters -> reference path-keyed arrays."""
     return {k: to_reference_layout(t) for k, t in named_leaves(params)}
@@ -80,9 +87,7 @@ def params_from_numpy(flat: Dict[str, np.ndarray], cfg: DVQAEConfig, *,
         state = {}
         for name, p in params[net].named_parameters():
             key = _ref_key(net, name)
-            arr = np.asarray(flat[key], dtype=np.float32)
-            if arr.ndim in _TO_TORCH:
-                arr = arr.transpose(_TO_TORCH[arr.ndim])
+            arr = _to_torch_layout(flat[key])
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{key}: shape {arr.shape} does not fit "
                                  f"the port's {tuple(p.shape)}")
@@ -93,6 +98,60 @@ def params_from_numpy(flat: Dict[str, np.ndarray], cfg: DVQAEConfig, *,
     codebook = torch.tensor(np.asarray(flat["codebook"], np.float32))
     params["codebook"] = codebook.to(device)
     return params
+
+
+def server_state_to_numpy(state) -> Dict[str, np.ndarray]:
+    """A DVQ-AE ``ServerState`` -> the path-keyed arrays of the reference's
+    ``save_pytree(..., ServerState)``: ``.params/<key>``, the AdamW moments
+    under ``.opt/.mu/<key>`` and ``.opt/.nu/<key>`` (the port keeps them as
+    lists in :func:`named_leaves` order), ``.opt/.count`` and ``.step`` as
+    int32 scalars. A state without an optimizer (``opt=None``) writes zero
+    moments and count 0, which is what its first step starts from."""
+    named = named_leaves(state.params)
+    out = {f".params/{k}": to_reference_layout(t) for k, t in named}
+    opt = state.opt
+    for field in ("mu", "nu"):
+        moments = [None] * len(named) if opt is None else getattr(opt, field)
+        if len(moments) != len(named):
+            raise ValueError(f"opt.{field} holds {len(moments)} moments for "
+                             f"{len(named)} parameters")
+        for (k, p), m in zip(named, moments):
+            out[f".opt/.{field}/{k}"] = (
+                np.zeros(out[f".params/{k}"].shape, np.float32) if m is None
+                else to_reference_layout(m))
+    out[".opt/.count"] = np.asarray(0 if opt is None else int(opt.count),
+                                    np.int32)
+    out[".step"] = np.asarray(int(state.step), np.int32)
+    return out
+
+
+def server_state_from_numpy(flat: Dict[str, np.ndarray], cfg: DVQAEConfig,
+                            *, device=None):
+    """Inverse of :func:`server_state_to_numpy` (and the reader of the
+    reference's ``.state.npz``): a ``ServerState`` with its modules,
+    codebook and AdamW moments on ``device`` (cuda unless
+    ``device="cpu"``)."""
+    from repro_torch.core.octopus import ServerState
+    from repro_torch.optim.adamw import AdamWState
+    device = resolve_device(device)
+    params = params_from_numpy(
+        {k[len(".params/"):]: v for k, v in flat.items()
+         if k.startswith(".params/")}, cfg, device=device)
+    named = named_leaves(params)
+
+    def moments(field):
+        out = []
+        for k, p in named:
+            arr = _to_torch_layout(flat[f".opt/.{field}/{k}"])
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f".opt/.{field}/{k}: shape {arr.shape} does "
+                                 f"not fit the port's {tuple(p.shape)}")
+            out.append(torch.tensor(arr, device=device))
+        return out
+
+    opt = AdamWState(mu=moments("mu"), nu=moments("nu"),
+                     count=int(flat[".opt/.count"]))
+    return ServerState(params=params, opt=opt, step=int(flat[".step"]))
 
 
 def load_npz(path: str, cfg: DVQAEConfig, *, device=None) -> dict:

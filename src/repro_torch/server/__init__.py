@@ -12,17 +12,18 @@
                bit for bit from the same key
   multitask  — MultiTaskTrainer: N downstream heads from ONE bulk decode
   runtime    — ContinuousIngestService: clocked, admission-controlled
-               ingest with background bulk decode; AsyncCodeServer, the
+               ingest with background bulk decode, crash-consistent with
+               ``persist=`` and ``recover``; AsyncCodeServer, the
                round-quantized shim over it
-
-Not ported yet (``ROADMAP.md`` Queue 1 item 4b): ``persist``
-(``ServerPersistence``), and with it the service's ``persist=`` and
-``recover``.
+  persist    — ServerPersistence: the append-only journal and periodic
+               snapshots of one service directory, in the reference's
+               layout
 """
 from repro_torch.wire.payload import CodePayload
 from repro_torch.wire.session import AdmissionResult, OctopusServer
 
 from .multitask import MultiTaskTrainer, TaskSpec
+from .persist import ServerPersistence
 from .registry import (MIGRATION_POLICIES, CodebookRegistry,
                        MigrationWindow)
 from .runtime import (AsyncCodeServer, BulkDecodePolicy,
@@ -38,5 +39,5 @@ __all__ = ["AdmissionResult", "AsyncCodeServer", "BulkDecodePolicy",
            "MIGRATION_POLICIES", "MigrationWindow", "MultiTaskTrainer",
            "OctopusServer", "RoundEvent", "RoundScheduler", "RoundStats",
            "STANDARD_SCENARIOS", "Scenario", "SchedulerConfig",
-           "ShardedCodeStore", "StoreRecord", "TaskSpec", "TickStats",
-           "UplinkQueue"]
+           "ServerPersistence", "ShardedCodeStore", "StoreRecord",
+           "TaskSpec", "TickStats", "UplinkQueue"]

@@ -19,9 +19,13 @@ Port of ``repro.server.runtime``. Two drivers share ONE wire endpoint
     ACTIVE population (``decay ** lag`` formed on the host, the merge
     unfused: ``core/octopus.py::server_merge_codebooks``).
 
-Crash consistency (the reference's ``persist=`` journal and ``recover``)
-comes with ``server/persist.py`` (``ROADMAP.md`` Queue 1 item 4b): both
-raise ``NotImplementedError`` here rather than run without a journal.
+With ``persist=`` (a ``server.persist.ServerPersistence``) the service is
+crash-consistent: every admitted offer, refusal, tick, merge and migration
+op is journaled before it mutates state, with periodic snapshots, and
+:meth:`ContinuousIngestService.recover` rebuilds a killed service from the
+latest snapshot and the journal tail replayed through the normal paths.
+The directory layout is the reference's, so either package recovers the
+other's.
 """
 from __future__ import annotations
 
@@ -41,11 +45,6 @@ from repro_torch.wire.session import AdmissionResult, OctopusServer
 
 from .registry import CodebookRegistry
 from .scheduler import RoundEvent, RoundScheduler
-
-_NO_PERSIST = ("crash-consistent ingest (the journal, snapshots and "
-               "recover) waits for the port of server/persist.py and "
-               "checkpoint/journal.py (ROADMAP.md, Queue 1 item 4b)")
-
 
 class PendingUplink(NamedTuple):
     """A wire payload still in flight (straggler delay); its codebook
@@ -122,6 +121,17 @@ class UplinkQueue:
             rec.uplink(packed, round=int(round), duplicate=True,
                        n_clients=_n_clients(client_ids))
         return n
+
+    def reorder_tail(self) -> bool:
+        """Swap the two most recently queued payloads (fault injection: the
+        channel delivered them out of send order). Returns whether a swap
+        happened: with fewer than two in flight there is nothing to
+        reorder."""
+        if len(self._pending) < 2:
+            return False
+        self._pending[-1], self._pending[-2] = \
+            self._pending[-2], self._pending[-1]
+        return True
 
     def deliver(self, wire: OctopusServer, round: int, *,
                 results: Optional[list] = None) -> tuple:
@@ -218,6 +228,13 @@ class ContinuousIngestService:
         never stored twice (a window of ``dedup_window`` keys).
     Every offer gets an :class:`AdmissionResult`; per-verdict counts and
     bytes live on ``.verdicts`` / ``.verdict_bytes``.
+
+    With ``persist`` (a ``ServerPersistence``) the service is
+    crash-consistent: snapshot 0 at construction, every state-mutating op
+    journaled, a snapshot every ``persist.snapshot_every`` ticks.
+    :meth:`recover` = latest snapshot + journal replay; the recovered store
+    decodes bit-identically to the uninterrupted run's, even when the kill
+    landed mid-migration.
     """
 
     def __init__(self, wire: OctopusServer, *,
@@ -226,8 +243,11 @@ class ContinuousIngestService:
                  defer_depth: Optional[int] = None,
                  decode_policy: BulkDecodePolicy = BulkDecodePolicy(),
                  dedup_window: int = 4096, persist=None):
-        if persist is not None:
-            raise NotImplementedError(_NO_PERSIST)
+        from .persist import ServerPersistence
+        if persist is not None and not isinstance(persist,
+                                                  ServerPersistence):
+            raise TypeError(f"persist must be a ServerPersistence, got "
+                            f"{type(persist).__name__}")
         self.wire = wire
         self.queue = queue if queue is not None else UplinkQueue()
         self.capacity = capacity
@@ -245,12 +265,40 @@ class ContinuousIngestService:
         self._tick_offered = 0
         self._tick_bytes = 0
         self._seen: "OrderedDict" = OrderedDict()   # admitted uplink_ids
+        self._replaying = False
+        self._persist = persist
+        self.recovery: Optional[dict] = None   # what recover() replayed
+        if persist is not None:
+            # snapshot 0: recovery always has a floor to replay from
+            persist.snapshot(self)
 
-    @classmethod
-    def recover(cls, *args, **kw):
-        raise NotImplementedError(_NO_PERSIST)
+    @property
+    def _journaling(self) -> bool:
+        return self._persist is not None and not self._replaying
 
     # ------------------------------------------------------------- offers
+
+    def _refuse(self, verdict: str, reason: str, nbytes: int) -> None:
+        """Journal a refusal, so that the recovered ledger and verdict
+        histogram match the uninterrupted run's (the payload never lands,
+        so only its deltas are journaled)."""
+        if self._journaling:
+            self._persist.log_refusal(verdict, reason, nbytes)
+
+    def _replay_refusal(self, verdict: str, reason: str,
+                        nbytes: int) -> None:
+        """Re-apply a journaled refusal's ledger and histogram deltas."""
+        q = self.queue
+        q.bytes_sent += nbytes
+        if verdict == "duplicate":
+            q.bytes_duplicate += nbytes
+        elif reason == "radio_drop":
+            q.bytes_dropped += nbytes
+        else:
+            q.bytes_rejected += nbytes
+        self.verdicts[verdict] = self.verdicts.get(verdict, 0) + 1
+        self.verdict_bytes[verdict] = \
+            self.verdict_bytes.get(verdict, 0) + nbytes
 
     def _result(self, verdict: str, reason: str, nbytes: int
                 ) -> AdmissionResult:
@@ -277,26 +325,33 @@ class ContinuousIngestService:
         if dropped:
             self.queue.send(p, round=self.tick_idx, delay=int(delay),
                             dropped=True, client_ids=client_ids)
+            self._refuse("rejected", "radio_drop", p.nbytes)
             return self._result("rejected", "radio_drop", p.nbytes)
         key = None if uplink_id is None else \
             (int(uplink_id[0]), int(uplink_id[1]))
         if key is not None and key in self._seen:
             self.queue.charge_duplicate(p, round=self.tick_idx,
                                         client_ids=client_ids)
+            self._refuse("duplicate", "dedup_window", p.nbytes)
             return self._result("duplicate", "dedup_window", p.nbytes)
         verdict, reason = self.wire.precheck(p)
         if verdict == "rejected":
             self.queue.charge(p, round=self.tick_idx, reason=reason,
                               client_ids=client_ids)
+            self._refuse(verdict, reason, p.nbytes)
             return self._result(verdict, reason, p.nbytes)
         if self.capacity is not None and len(self.queue) >= self.capacity:
             self.queue.charge(p, round=self.tick_idx, reason="queue_full",
                               client_ids=client_ids)
+            self._refuse("rejected", "queue_full", p.nbytes)
             return self._result("rejected", "queue_full", p.nbytes)
         if key is not None:
             self._seen[key] = True
             while len(self._seen) > self.dedup_window:
                 self._seen.popitem(last=False)
+        if self._journaling:
+            self._persist.log_offer(p, client_ids=client_ids,
+                                    delay=int(delay), uplink_id=key)
         self.queue.send(p, round=self.tick_idx, delay=int(delay),
                         client_ids=client_ids)
         if verdict == "accepted" and self.defer_depth is not None \
@@ -314,6 +369,8 @@ class ContinuousIngestService:
         freshly stored records."""
         rec = _obs.active()
         t0 = time.perf_counter() if rec is not None else 0.0
+        if self._journaling:
+            self._persist.log_tick()
         results: list = []
         delivered, n_del = self.queue.deliver(self.wire, self.tick_idx,
                                               results=results)
@@ -352,6 +409,9 @@ class ContinuousIngestService:
         self._tick_offered = 0
         self._tick_bytes = 0
         self.tick_idx += 1
+        if self._journaling and self._persist.snapshot_every \
+                and self.tick_idx % self._persist.snapshot_every == 0:
+            self._persist.snapshot(self)
         return stats
 
     def _bulk_decode(self, records) -> tuple:
@@ -397,19 +457,159 @@ class ContinuousIngestService:
                 out.append(self.tick())
         return out
 
-    # ------------------------------------------------ server-side delegates
+    def reorder_tail(self) -> bool:
+        """Swap the two most recently queued payloads (the chaos plane's
+        ``reorder``), journaled: replay must deliver them in the swapped
+        order, or a kill before their delivery would rebuild the store in
+        another order (and evict other records). Returns whether a swap
+        happened."""
+        swapped = self.queue.reorder_tail()
+        if swapped and self._journaling:
+            self._persist.log_reorder()
+        return swapped
+
+    # ------------------------------------------- journaled server-side ops
 
     def merge_stats(self, stats) -> int:
         """Step 5 merge through the service door
-        (``OctopusServer.merge_stats``)."""
-        return self.wire.merge_stats(stats)
+        (``OctopusServer.merge_stats``), journaled as the POST-merge
+        dictionary and its version, so replay re-registers the
+        bit-identical snapshot without the client statistics."""
+        version = self.wire.merge_stats(stats)
+        if self._journaling:
+            self._persist.log_merge(self.wire.state.params["codebook"],
+                                    version)
+        return version
 
     def begin_migration(self, *, src: Optional[int] = None,
                         dst: Optional[int] = None, policy: str = "keep"):
-        return self.wire.begin_migration(src=src, dst=dst, policy=policy)
+        """Journaled ``OctopusServer.begin_migration``: a kill with the
+        window open replays back INTO the open window."""
+        win = self.wire.begin_migration(src=src, dst=dst, policy=policy)
+        if self._journaling:
+            self._persist.log_migration("begin", src=win.src, dst=win.dst,
+                                        policy=win.policy)
+        return win
 
     def complete_migration(self):
-        return self.wire.complete_migration()
+        """Journaled ``OctopusServer.complete_migration``."""
+        progress = self.wire.complete_migration()
+        if self._journaling:
+            self._persist.log_migration("complete")
+        return progress
+
+    def _replay_merge(self, codebook, version: int) -> None:
+        """Re-apply a journaled merge: adopt the journaled post-merge
+        dictionary (``server_merge_stats`` replaces only the codebook) and
+        re-register it as the journaled version."""
+        params = self.wire.state.params
+        cb = torch.as_tensor(np.asarray(codebook, np.float32),
+                             device=params["codebook"].device)
+        self.wire.state = self.wire.state._replace(
+            params={**params, "codebook": cb})
+        got = self.wire.registry.register(cb)
+        if got != int(version):
+            raise RuntimeError(
+                f"journal replay diverged: merge registered v{got}, "
+                f"journal says v{version}")
+
+    # ------------------------------------------------------------ recovery
+
+    def _replay(self, persist, entry: dict) -> None:
+        """Apply one journal entry through the normal code paths."""
+        kind = entry["kind"]
+        if kind == "offer":
+            self.offer(persist.decode_offer_payload(entry,
+                                                    device=self.wire.device),
+                       client_ids=entry.get("client_ids"),
+                       delay=entry.get("delay", 0),
+                       uplink_id=entry.get("uplink_id"))
+        elif kind == "refusal":
+            self._replay_refusal(entry["verdict"], entry["reason"],
+                                 entry["nbytes"])
+        elif kind == "reorder":
+            if not self.queue.reorder_tail():
+                raise RuntimeError("journal replay diverged: a reorder with "
+                                   "fewer than two payloads in flight")
+        elif kind == "tick":
+            self.tick(emit_event=False)
+        elif kind == "merge":
+            self._replay_merge(persist.decode_merge_codebook(entry),
+                               entry["version"])
+        elif kind == "migration" and entry["phase"] == "begin":
+            self.wire.begin_migration(src=entry["src"], dst=entry["dst"],
+                                      policy=entry["policy"])
+        elif kind == "migration" and entry["phase"] == "complete":
+            self.wire.complete_migration()
+        else:
+            raise ValueError(f"journal entry of unknown kind {kind!r} "
+                             f"(phase {entry.get('phase')!r}): refusing to "
+                             f"recover past it")
+
+    @classmethod
+    def recover(cls, persist, cfg, state_like=None, *, shard_fn=None,
+                device=None, **service_kw) -> "ContinuousIngestService":
+        """Rebuild a crashed service: latest snapshot + journal replay.
+
+        ``persist`` is a ``ServerPersistence`` rooted at the crashed
+        service's directory (or the directory path itself), written by
+        either package; ``cfg`` is the deployment's DVQAEConfig;
+        ``state_like`` is the reference's template argument (the port
+        takes the structure from ``cfg``). Everything lands on ``device``
+        (cuda unless ``device="cpu"``). Journal entries after the
+        snapshot's high-water mark replay through the NORMAL
+        offer/tick/merge/migration paths with the flight recorder detached
+        (the crashed run already emitted those events); one ``recovery``
+        event summarizes the drill, and ``.recovery`` holds the same
+        figures. ``service_kw`` (capacity, defer_depth, decode_policy, ...)
+        must match the crashed service's construction.
+        """
+        from .persist import ServerPersistence
+        if not isinstance(persist, ServerPersistence):
+            persist = ServerPersistence(persist, resume=True)
+        t0 = time.perf_counter()
+        snap = persist.load_snapshot(cfg, state_like, shard_fn=shard_fn,
+                                     device=device)
+        wire = OctopusServer(snap["state"], cfg, store=snap["store"],
+                             registry=snap["registry"], device=device)
+        service = cls(wire, **service_kw)
+        service.queue = snap["queue"]
+        service.tick_idx = snap["tick_idx"]
+        service.verdicts = snap["verdicts"]
+        service.verdict_bytes = snap["verdict_bytes"]
+        service.decoded_records = snap["decoded_records"]
+        service.decode_dispatches = snap["decode_dispatches"]
+        service._seen = snap["seen"]
+
+        # replay the journal tail with the recorder DETACHED: these
+        # mutations already streamed their events before the crash
+        rec = _obs.active()
+        if rec is not None:
+            _obs.uninstall()
+        service._replaying = True
+        n_replayed = 0
+        try:
+            for entry in persist.journal.entries(start=snap["journal_pos"]):
+                service._replay(persist, entry)
+                n_replayed += 1
+        finally:
+            service._replaying = False
+            if rec is not None:
+                _obs.install(rec)
+        service._persist = persist
+        service.recovery = dict(
+            tick=service.tick_idx, snapshot_tick=snap["snapshot_tick"],
+            n_replayed=n_replayed,
+            dur_ms=(time.perf_counter() - t0) * 1e3,
+            queue_depth=len(service.queue),
+            store_records=len(service.wire.store))
+        rec = _obs.active()
+        if rec is not None:
+            rec.metrics.inc("recoveries")
+            rec.event("recovery", **service.recovery)
+        service.recovery["decode_dispatches_replayed"] = \
+            service.decode_dispatches - snap["decode_dispatches"]
+        return service
 
     # ----------------------------------------------------------- metrics
 

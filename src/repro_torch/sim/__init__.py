@@ -6,10 +6,13 @@
   cohort  — cohort-streamed population rounds with the exactly associative
             Step 5 stats merge, scheduler-driven traffic (``run_traffic``)
             and open-ended continuous-ingest traffic (``run_continuous``)
+  faults  — the chaos plane: ``FaultyChannel`` drops, duplicates,
+            reorders, delays, corrupts and truncates uplinks under a
+            ``FaultPlan``, each family on its own key substream, with the
+            client retry loop
 
-Not ported yet (``ROADMAP.md`` Queue 1 item 4b): the chaos plane
-(``faults``). The retired ``IngestBuffer`` and ``PackedCodes`` raise on
-import, as in the reference.
+The retired ``IngestBuffer`` and ``PackedCodes`` raise on import, as in
+the reference.
 """
 from repro_torch.wire.payload import CodePayload
 
@@ -17,9 +20,11 @@ from .cohort import (CohortEngine, CohortPlan, CohortRound, ContinuousTick,
                      TrafficRound)
 from .engine import (SimEngine, client_batch_size, replicate_clients,
                      stack_clients, unstack_clients)
+from .faults import FAULT_KINDS, FaultPlan, FaultyChannel
 
 __all__ = ["CodePayload", "CohortEngine", "CohortPlan", "CohortRound",
-           "ContinuousTick", "SimEngine", "TrafficRound",
+           "ContinuousTick", "FAULT_KINDS", "FaultPlan", "FaultyChannel",
+           "SimEngine", "TrafficRound",
            "client_batch_size", "replicate_clients", "stack_clients",
            "unstack_clients"]
 

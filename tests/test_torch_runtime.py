@@ -332,17 +332,21 @@ def test_migrations_match_reference(twins, policy):
         wire.migration_progress()
 
 
-def test_reencode_refuses_gsvq_and_persist_waits_for_4b(twins):
+def test_reencode_refuses_gsvq_and_persist_waits_for_4b(twins, tmp_path):
+    """Re-encoding refuses GSVQ; ``persist=`` takes a ServerPersistence
+    and nothing else (it never runs unjournaled), and ``recover`` of a
+    directory with no committed snapshot raises, as the reference's."""
     gcfg = DVQAEConfig(**dict(TINY, n_groups=4, n_slices=2))
     server = OC.server_init(0, gcfg, device="cpu")
     wire = W.OctopusServer(server, gcfg, device="cpu")
     with pytest.raises(ValueError, match="plain VQ"):
         wire._reencode_payload(payloads(np.zeros((1, 1, 4), np.int32),
                                         0)[0], 0)
-    with pytest.raises(NotImplementedError, match="4b"):
+    with pytest.raises(TypeError, match="ServerPersistence"):
         SV.ContinuousIngestService(wire, persist=object())
-    with pytest.raises(NotImplementedError, match="4b"):
-        SV.ContinuousIngestService.recover("dir", gcfg, server)
+    with pytest.raises(FileNotFoundError, match="no committed snapshot"):
+        SV.ContinuousIngestService.recover(str(tmp_path / "dir"), gcfg,
+                                           server, device="cpu")
 
 
 # ------------------------------------------------------- the round driver
