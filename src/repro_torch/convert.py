@@ -25,7 +25,7 @@ port computes ``x @ w``), :func:`lm_params_to_numpy` stacks them back, and
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +44,10 @@ _NETS = ("encoder", "decoder")
 
 def _ref_key(net: str, name: str) -> str:
     """Port parameter name (``res0.c1.weight``) of ``net`` -> reference
-    path (``encoder/res0/c1/kernel``)."""
+    path (``encoder/res0/c1/kernel``); a top-level parameter keeps its name
+    (the sequence kind's ``proj`` -> ``encoder/proj``)."""
+    if "." not in name:
+        return f"{net}/{name}"
     path, leaf = name.rsplit(".", 1)
     return f"{net}/" + path.replace(".", "/") + "/" + (
         "kernel" if leaf == "weight" else leaf)
@@ -80,9 +83,13 @@ def params_from_numpy(flat: Dict[str, np.ndarray], cfg: DVQAEConfig, *,
                       device=None) -> dict:
     """Reference path-keyed arrays -> ``{"encoder": nn.Module, "decoder":
     nn.Module, "codebook": (K, M) tensor}`` on ``device`` (cuda unless
-    ``device="cpu"``)."""
+    ``device="cpu"``). A sequence DVQ-AE takes its ``d_model`` from the
+    rows of ``encoder/proj``."""
     device = resolve_device(device)
-    params = {"encoder": make_encoder(cfg), "decoder": make_decoder(cfg)}
+    d_model = int(np.shape(flat["encoder/proj"])[0]) \
+        if cfg.kind == "sequence" else None
+    params = {"encoder": make_encoder(cfg, d_model=d_model),
+              "decoder": make_decoder(cfg, d_model=d_model)}
     for net in _NETS:
         state = {}
         for name, p in params[net].named_parameters():
@@ -162,16 +169,24 @@ def load_npz(path: str, cfg: DVQAEConfig, *, device=None) -> dict:
         return params_from_numpy(dict(data), cfg, device=device)
 
 
-def init_numpy_params(cfg: DVQAEConfig, seed: int) -> Dict[str, np.ndarray]:
+def init_numpy_params(cfg: DVQAEConfig, seed: int, *,
+                      d_model: Optional[int] = None
+                      ) -> Dict[str, np.ndarray]:
     """Encoder, decoder and codebook in the reference's layout and init
-    scales: conv kernels U(±1/sqrt(c_in * k^d)), zero biases, N(0, 1)
-    codebook. Drawn in that order from one ``default_rng(seed)``."""
+    scales: conv kernels U(±1/sqrt(c_in * k^d)), the sequence kind's
+    (in, out) projections U(±1/sqrt(in)) (``d_model`` its hidden width),
+    zero biases, N(0, 1) codebook. Drawn in that order from one
+    ``default_rng(seed)``."""
     rng = np.random.default_rng(seed)
     flat = {}
     for net, make in zip(_NETS, (make_encoder, make_decoder)):
-        for name, p in make(cfg).named_parameters():
+        for name, p in make(cfg, d_model=d_model).named_parameters():
             shape = tuple(p.shape)
-            if name.endswith(".weight"):
+            if name == "proj":
+                scale = 1.0 / math.sqrt(shape[0])
+                flat[_ref_key(net, name)] = rng.uniform(
+                    -scale, scale, shape).astype(np.float32)
+            elif name.endswith(".weight"):
                 scale = 1.0 / math.sqrt(math.prod(shape[1:]))
                 w = rng.uniform(-scale, scale, shape).astype(np.float32)
                 flat[_ref_key(net, name)] = w.transpose(_TO_REF[len(shape)])

@@ -1,14 +1,18 @@
 """Distributed Vector-Quantized Autoencoder (OCTOPUS §2.3).
 
-Port of ``repro.core.dvqae`` for the image and speech kinds: the
-configuration (its own copy of the reference's dataclass), the encoders
-and decoders as ``nn.Module``s, :func:`encode`, :func:`decode` and the
-training pass :func:`forward` with the Eq. 6 loss. Parameters are
-``{"encoder": nn.Module, "decoder": nn.Module, "codebook": (K, M)}``.
+Port of ``repro.core.dvqae``: the configuration (its own copy of the
+reference's dataclass), the encoders and decoders as ``nn.Module``s,
+:func:`encode`, :func:`decode` and the training pass :func:`forward` with
+the Eq. 6 loss. Parameters are ``{"encoder": nn.Module, "decoder":
+nn.Module, "codebook": (K, M)}``.
 
-The modules take the reference's layouts — (B, H, W, C) images and
-(B, T, C) frames — and :func:`encode` returns (B, P, M) latents, P =
-(H/4)*(W/4) or T/4. Inside they run in PyTorch's NCHW / NCT layout.
+The modules take the reference's layouts — (B, H, W, C) images, (B, T, C)
+frames and (B, T, d_model) sequences — and :func:`encode` returns (B, P,
+M) latents, P = (H/4)*(W/4), T/4 or T. Inside the conv kinds run in
+PyTorch's NCHW / NCT layout. The ``sequence`` kind is one bias-free
+projection each way, whose width ``d_model`` is not part of the config:
+the caller passes it, as the reference's ``init_dvqae(..., d_model=)``
+takes it.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.nn.layers import (Conv1d, Conv2d, ConvTranspose2d,
-                                   _instance_norm)
+                                   _instance_norm, dense_init)
 
 from .disentangle import DisentangledLatent, recombine, split_public_private
 
@@ -158,24 +162,50 @@ class SpeechDecoder(_ConvDecoder):
         return self.up2(h.repeat_interleave(2, dim=-1)).transpose(1, 2)
 
 
+class SequenceProjection(nn.Module):
+    """The ``sequence`` kind's encoder or decoder: ``x @ proj``, ``proj``
+    (d_in, d_out), no bias (d_model -> M encodes, M -> d_model decodes)."""
+
+    def __init__(self, d_in: int, d_out: int, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.proj = nn.Parameter(dense_init(d_in, d_out, generator=generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.proj
+
+
+def _d_model(d_model: Optional[int]) -> int:
+    if d_model is None:
+        raise ValueError("a sequence DVQ-AE needs d_model, the width of "
+                         "the hidden states it encodes")
+    return int(d_model)
+
+
 def make_encoder(cfg: DVQAEConfig, *,
-                 generator: Optional[torch.Generator] = None) -> nn.Module:
+                 generator: Optional[torch.Generator] = None,
+                 d_model: Optional[int] = None) -> nn.Module:
     if cfg.kind == "image":
         return ImageEncoder(cfg, generator=generator)
     if cfg.kind == "speech":
         return SpeechEncoder(cfg, generator=generator)
-    raise ValueError(f"the port encodes image and speech DVQ-AEs, got "
-                     f"kind={cfg.kind!r}")
+    if cfg.kind == "sequence":
+        return SequenceProjection(_d_model(d_model), cfg.latent_dim,
+                                  generator=generator)
+    raise ValueError(f"unknown DVQ-AE kind={cfg.kind!r}")
 
 
 def make_decoder(cfg: DVQAEConfig, *,
-                 generator: Optional[torch.Generator] = None) -> nn.Module:
+                 generator: Optional[torch.Generator] = None,
+                 d_model: Optional[int] = None) -> nn.Module:
     if cfg.kind == "image":
         return ImageDecoder(cfg, generator=generator)
     if cfg.kind == "speech":
         return SpeechDecoder(cfg, generator=generator)
-    raise ValueError(f"the port decodes image and speech DVQ-AEs, got "
-                     f"kind={cfg.kind!r}")
+    if cfg.kind == "sequence":
+        return SequenceProjection(cfg.latent_dim, _d_model(d_model),
+                                  generator=generator)
+    raise ValueError(f"unknown DVQ-AE kind={cfg.kind!r}")
 
 
 class DVQAEOut(NamedTuple):
@@ -186,7 +216,8 @@ class DVQAEOut(NamedTuple):
 
 
 def encode(params, cfg: DVQAEConfig, x: torch.Tensor):
-    """-> (z (B, P, M), spatial): (H/4, W/4) for images, None for speech."""
+    """-> (z (B, P, M), spatial): (H/4, W/4) for images, None for speech
+    and sequences."""
     z = params["encoder"](x)
     if cfg.kind == "image":
         B, H, W, M = z.shape

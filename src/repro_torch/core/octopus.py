@@ -87,12 +87,13 @@ def loss_grads(params, cfg: DVQAEConfig, batch: torch.Tensor, *,
 
 # --------------------------------------------------------------- Step 1
 
-def server_init(seed: int, cfg: DVQAEConfig, *, device) -> ServerState:
+def server_init(seed: int, cfg: DVQAEConfig, *, device,
+                d_model: Optional[int] = None) -> ServerState:
     """A global model drawn in the reference's layout from ``seed``, with a
-    fresh AdamW state."""
+    fresh AdamW state; ``d_model`` is a sequence DVQ-AE's hidden width."""
     from repro_torch.convert import init_numpy_params, params_from_numpy
-    params = params_from_numpy(init_numpy_params(cfg, seed), cfg,
-                               device=device)
+    params = params_from_numpy(init_numpy_params(cfg, seed, d_model=d_model),
+                               cfg, device=device)
     return ServerState(params=params, opt=adamw_init(trainable(params)))
 
 

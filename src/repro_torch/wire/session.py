@@ -303,13 +303,14 @@ class OctopusServer:
         self.require_privatized = require_privatized
 
     @classmethod
-    def init(cls, seed: int, cfg: DVQAEConfig, *, device=None
-             ) -> "OctopusServer":
+    def init(cls, seed: int, cfg: DVQAEConfig, *, device=None,
+             d_model: Optional[int] = None) -> "OctopusServer":
         """A server whose global model is drawn from ``seed`` in the
         reference's layout (``convert.init_numpy_params``), with a fresh
-        AdamW state."""
+        AdamW state; ``d_model`` is a sequence DVQ-AE's hidden width."""
         dev = resolve_device(device)
-        return cls(OC.server_init(seed, cfg, device=dev), cfg, device=dev)
+        return cls(OC.server_init(seed, cfg, device=dev, d_model=d_model),
+                   cfg, device=dev)
 
     @property
     def version(self) -> int:
