@@ -12,11 +12,13 @@ import importlib
 from .base import ModelConfig
 
 #: architectures the port runs (the reference's ARCH_IDS has ten)
-ARCH_IDS = ("qwen3_0_6b", "jamba_v0_1_52b")
+ARCH_IDS = ("qwen3_0_6b", "jamba_v0_1_52b", "xlstm_350m", "starcoder2_3b")
 
 # CLI-facing aliases (the assignment's hyphenated ids)
 ALIASES = {"qwen3-0.6b": "qwen3_0_6b",
-           "jamba-v0.1-52b": "jamba_v0_1_52b"}
+           "jamba-v0.1-52b": "jamba_v0_1_52b",
+           "xlstm-350m": "xlstm_350m",
+           "starcoder2-3b": "starcoder2_3b"}
 
 
 def canonical(name: str) -> str:

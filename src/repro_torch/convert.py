@@ -10,9 +10,11 @@ conv1d HIO -> OIH by ``transpose(2, 1, 0)``, probe weights kept (in, out)
 since the probe computes ``x @ w``. :func:`params_to_numpy` writes the
 port's parameters back in the reference's keys and layouts.
 
-:func:`init_numpy_params` draws parameters in the reference's layout from
-``numpy.random.default_rng(seed)`` with the reference's init scales, so a
-program without JAX gets full-width weights through the same converter.
+:func:`init_numpy_params` draws parameters in the reference's layout with
+the reference's init scales, so a program without JAX gets full-width
+weights through the same converter: the ``sequence`` kind's are the
+reference's own draw (:mod:`repro_torch.prng`), the conv kinds' come
+from ``numpy.random.default_rng(seed)``.
 
 The LM's parameters (``repro.models.transformer.init_lm``) are keyed
 ``embed``, ``final_norm/scale``, ``head`` (untied only) and
@@ -30,11 +32,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import prng, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.downstream import ConvClassifier, LinearProbe
 from repro_torch.core.dvqae import DVQAEConfig, make_decoder, make_encoder
 from repro_torch.models.transformer import check_supported, segment_plan
+from repro_torch.nn import xlstm
 from repro_torch.nn.ssm import dt_rank
 
 _TO_TORCH = {4: (3, 2, 0, 1), 3: (2, 1, 0)}     # HWIO -> OIHW, HIO -> OIH
@@ -173,27 +176,34 @@ def init_numpy_params(cfg: DVQAEConfig, seed: int, *,
                       d_model: Optional[int] = None
                       ) -> Dict[str, np.ndarray]:
     """Encoder, decoder and codebook in the reference's layout and init
-    scales: conv kernels U(±1/sqrt(c_in * k^d)), the sequence kind's
-    (in, out) projections U(±1/sqrt(in)) (``d_model`` its hidden width),
-    zero biases, N(0, 1) codebook. Drawn in that order from one
-    ``default_rng(seed)``."""
+    scales. The ``sequence`` kind draws the reference's own arrays
+    (``init_dvqae(jax.random.PRNGKey(seed), cfg, d_model=d_model)``)
+    through :mod:`repro_torch.prng`: ``ke, kd, kc = split(key, 3)``, the
+    (in, out) projections U(±1/sqrt(in)) from ``split(ke, 2)`` and the
+    N(0, 1) codebook from ``kc``. The ``image`` and ``speech`` kinds draw
+    from one ``default_rng(seed)``, in this order: conv kernels
+    U(±1/sqrt(c_in * k^d)), zero biases, the N(0, 1) codebook; those
+    arrays differ from the reference's draw."""
+    K, M = cfg.codebook_size, cfg.latent_dim
+    if cfg.kind == "sequence":
+        ke, _, kc = prng.split(prng.prng_key(seed), 3)
+        k1, k2 = prng.split(ke, 2)
+        s_enc, s_dec = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(M)
+        return {"encoder/proj": prng.uniform(k1, (d_model, M), -s_enc, s_enc),
+                "decoder/proj": prng.uniform(k2, (M, d_model), -s_dec, s_dec),
+                "codebook": prng.normal(kc, (K, M))}
     rng = np.random.default_rng(seed)
     flat = {}
     for net, make in zip(_NETS, (make_encoder, make_decoder)):
         for name, p in make(cfg, d_model=d_model).named_parameters():
             shape = tuple(p.shape)
-            if name == "proj":
-                scale = 1.0 / math.sqrt(shape[0])
-                flat[_ref_key(net, name)] = rng.uniform(
-                    -scale, scale, shape).astype(np.float32)
-            elif name.endswith(".weight"):
+            if name.endswith(".weight"):
                 scale = 1.0 / math.sqrt(math.prod(shape[1:]))
                 w = rng.uniform(-scale, scale, shape).astype(np.float32)
                 flat[_ref_key(net, name)] = w.transpose(_TO_REF[len(shape)])
             else:
                 flat[_ref_key(net, name)] = np.zeros(shape, np.float32)
-    flat["codebook"] = rng.standard_normal(
-        (cfg.codebook_size, cfg.latent_dim)).astype(np.float32)
+    flat["codebook"] = rng.standard_normal((K, M)).astype(np.float32)
     return flat
 
 
@@ -262,12 +272,14 @@ def _norm_spec(prefix: str, kind: str, d: int) -> dict:
 
 def lm_block_spec(cfg: ModelConfig, mixer: str = "attn",
                   ffn: str = "dense") -> Dict[str, tuple]:
-    """One block of ``mixer`` (attn, mamba) and ``ffn`` (dense, moe):
-    reference key -> (shape, init). Inits: "ones", "zeros", "dense"
+    """One block of ``mixer`` (attn, mamba, mlstm, slstm) and ``ffn``
+    (dense, moe, none): reference key -> (shape, init). A block without a
+    feed-forward has no ``post_norm``. Inits: "ones", "zeros", "dense"
     (U(±1/sqrt(shape[0])), the fan-in of an (in, out) weight or of a (K,
-    C) conv kernel), "expert" (U(±1/sqrt(shape[1])): an expert stack is
-    (E, in, out)), "a_log" (``log(1..N)`` on every channel) and "dt_bias"
-    (the inverse softplus of a log-uniform dt in [1e-3, 0.1])."""
+    C) conv kernel), "per_head" (U(±1/sqrt(shape[1])): an expert stack is
+    (E, in, out), sLSTM's recurrent ``r`` (NH, DH, 4 DH)), "a_log"
+    (``log(1..N)`` on every channel) and "dt_bias" (the inverse softplus
+    of a log-uniform dt in [1e-3, 0.1])."""
     d = cfg.d_model
     spec = _norm_spec("pre_norm", cfg.norm, d)
     if mixer == "attn":
@@ -280,7 +292,7 @@ def lm_block_spec(cfg: ModelConfig, mixer: str = "attn",
         if cfg.qk_norm:
             spec.update({"mixer/q_norm/scale": ((hd,), "ones"),
                          "mixer/k_norm/scale": ((hd,), "ones")})
-    else:
+    elif mixer == "mamba":
         s = cfg.ssm
         di, N = s.expand * d, s.d_state
         dtr = dt_rank(cfg)
@@ -292,6 +304,25 @@ def lm_block_spec(cfg: ModelConfig, mixer: str = "attn",
                      "mixer/A_log": ((di, N), "a_log"),
                      "mixer/D": ((di,), "ones"),
                      "mixer/out_proj": ((di, d), "dense")})
+    elif mixer == "mlstm":
+        di = xlstm.inner_dim(cfg)
+        spec.update({"mixer/up_proj": ((d, 2 * di), "dense"),
+                     "mixer/conv/kernel": ((cfg.xlstm.conv_dim, di), "dense"),
+                     "mixer/wq": ((di, di), "dense"),
+                     "mixer/wk": ((di, di), "dense"),
+                     "mixer/wv": ((di, di), "dense"),
+                     "mixer/w_if": ((di, 2 * xlstm.NH), "dense"),
+                     "mixer/skip_scale": ((di,), "ones"),
+                     "mixer/down_proj": ((di, d), "dense")})
+    else:
+        dh, ffd = d // xlstm.NH, xlstm.ffn_dim(cfg)
+        spec.update({"mixer/w_in": ((d, 4 * d), "dense"),
+                     "mixer/r": ((xlstm.NH, dh, 4 * dh), "per_head"),
+                     "mixer/bias": ((4 * d,), "zeros"),
+                     "mixer/ffn_up": ((d, 2 * ffd), "dense"),
+                     "mixer/ffn_down": ((ffd, d), "dense")})
+    if ffn == "none":
+        return spec
     spec.update(_norm_spec("post_norm", cfg.norm, d))
     if ffn == "dense":
         f = cfg.d_ff
@@ -301,9 +332,9 @@ def lm_block_spec(cfg: ModelConfig, mixer: str = "attn",
         m = cfg.moe
         E, f = m.n_experts, m.d_ff_expert
         spec.update({"ffn/router": ((d, E), "dense"),
-                     "ffn/experts/wi": ((E, d, f), "expert"),
-                     "ffn/experts/wg": ((E, d, f), "expert"),
-                     "ffn/experts/wo": ((E, f, d), "expert")})
+                     "ffn/experts/wi": ((E, d, f), "per_head"),
+                     "ffn/experts/wg": ((E, d, f), "per_head"),
+                     "ffn/experts/wo": ((E, f, d), "per_head")})
         if m.n_shared_experts:
             fs = m.n_shared_experts * f
             spec.update({"ffn/shared/wi": ((d, fs), "dense"),
@@ -400,8 +431,8 @@ def init_numpy_lm_params(cfg: ModelConfig, seed: int
     def draw(full, shape, init):
         """An array of ``full`` shape (``shape`` stacked over a segment's
         layers, or ``shape`` itself) with ``shape``'s init."""
-        if init in ("dense", "expert"):
-            fan_in = shape[1] if init == "expert" else shape[0]
+        if init in ("dense", "per_head"):
+            fan_in = shape[1] if init == "per_head" else shape[0]
             scale = np.float32(1.0 / math.sqrt(fan_in))
             return rng.random(full, dtype=np.float32) * (2 * scale) - scale
         if init == "a_log":

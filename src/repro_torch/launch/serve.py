@@ -11,6 +11,10 @@ Port of ``repro.launch.serve``. Runs on the CUDA device unless
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch jamba-v0.1-52b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch xlstm-350m \\
+        --batch 8 --prompt-len 128 --gen 128
+    python -m repro_torch.launch.serve --arch starcoder2-3b \\
+        --batch 2 --prompt-len 128 --gen 128
 
 The full ``jamba-v0.1-52b`` (32 layers, 192 GiB in float32) needs more
 than one card and waits for the port of the distribution layer; one

@@ -1,8 +1,9 @@
 """Decoder LM assembly: the training loss, prefill and one-token decode.
 
-Port of ``repro.models.transformer`` for blocks of self-attention or a
-Mamba mixer, each with a dense gated MLP or a MoE feed-forward: qwen3-0.6b
-and the jamba hybrid. The reference groups layers into homogeneous
+Port of ``repro.models.transformer`` for blocks of self-attention, a
+Mamba mixer or an xLSTM mixer (mLSTM, sLSTM), each with a dense gated MLP,
+a MoE feed-forward or none (the xLSTM blocks): qwen3-0.6b, starcoder2-3b,
+the jamba hybrid and xlstm-350m. The reference groups layers into homogeneous
 segments, stacks each segment's parameters on a leading axis and runs it
 under ``lax.scan``; the port keeps the segments but holds a list of
 per-layer parameter dicts in each and runs a Python loop over them.
@@ -10,10 +11,11 @@ per-layer parameter dicts in each and runs a Python loop over them.
 
 Caches stay stacked per segment, as in the reference: a
 :class:`KVCache` (n_layers_in_segment, B, S, n_kv, head_dim) for
-attention and a :class:`MambaCache` (h (n, B, di, N), conv (n, B, K - 1,
-di)) for Mamba; a decode step writes each layer's slice in place.
+attention, a :class:`MambaCache` (h (n, B, di, N), conv (n, B, K - 1,
+di)) for Mamba and an :class:`MLSTMCache` or :class:`SLSTMCache` for
+xLSTM; a decode step writes each layer's slice in place.
 
-Other mixers (MLA, xLSTM), the Whisper encoder-decoder and the MTP head
+Other mixers (MLA), the Whisper encoder-decoder and the MTP head
 raise ``NotImplementedError``: ROADMAP.md lists them. With ``remat`` each
 block runs under ``torch.utils.checkpoint``, as the reference wraps each
 scanned block body in ``jax.checkpoint``: its activations are recomputed
@@ -37,6 +39,8 @@ from repro_torch.nn.attention import (attention, init_attention, init_cache,
 from repro_torch.nn.layers import apply_norm, embed_init, init_mlp, init_norm, mlp
 from repro_torch.nn.moe import init_moe, moe_apply
 from repro_torch.nn.ssm import init_mamba, init_mamba_cache, mamba
+from repro_torch.nn.xlstm import (init_mlstm, init_mlstm_cache, init_slstm,
+                                  init_slstm_cache, mlstm, slstm)
 
 
 # --------------------------------------------------------------- segments
@@ -52,8 +56,11 @@ def segment_plan(cfg: ModelConfig) -> Tuple[Tuple[str, str, int], ...]:
     return tuple((m, f, n) for m, f, n in runs)
 
 
-MIXERS = ("attn", "mamba")
-FFNS = ("dense", "moe")
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
+FFNS = ("dense", "moe", "none")
+_INIT_MIXER = {"attn": init_attention, "mamba": init_mamba,
+               "mlstm": init_mlstm, "slstm": init_slstm}
+_RECURRENT = {"mamba": mamba, "mlstm": mlstm, "slstm": slstm}
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -64,18 +71,21 @@ def check_supported(cfg: ModelConfig) -> None:
         what = ", ".join(other + ["encoder-decoder"] * cfg.is_encoder_decoder
                          + ["MTP"] * cfg.use_mtp)
         raise NotImplementedError(
-            f"{cfg.name}: the port runs attention or Mamba mixers with dense "
-            f"or MoE feed-forwards, not {what}; ROADMAP.md lists the rest")
+            f"{cfg.name}: the port runs attention, Mamba or xLSTM mixers "
+            f"with dense, MoE or no feed-forwards, not {what}; ROADMAP.md "
+            f"lists the rest")
 
 
 def _init_block(cfg, mixer: str, ffn: str, generator) -> dict:
-    return {"pre_norm": init_norm(cfg.norm, cfg.d_model),
-            "mixer": (init_attention(cfg, generator=generator)
-                      if mixer == "attn"
-                      else init_mamba(cfg, generator=generator)),
-            "post_norm": init_norm(cfg.norm, cfg.d_model),
-            "ffn": (init_mlp(cfg.d_model, cfg.d_ff, generator=generator)
-                    if ffn == "dense" else init_moe(cfg, generator=generator))}
+    """A block's parameters; a block with ffn "none" (xLSTM) has neither
+    ``post_norm`` nor ``ffn``, as in the reference."""
+    p = {"pre_norm": init_norm(cfg.norm, cfg.d_model),
+         "mixer": _INIT_MIXER[mixer](cfg, generator=generator)}
+    if ffn != "none":
+        p["post_norm"] = init_norm(cfg.norm, cfg.d_model)
+        p["ffn"] = (init_mlp(cfg.d_model, cfg.d_ff, generator=generator)
+                    if ffn == "dense" else init_moe(cfg, generator=generator))
+    return p
 
 
 def _to(tree, device):
@@ -119,19 +129,21 @@ def init_lm(generator: Optional[torch.Generator], cfg: ModelConfig, *,
 def _apply_block(bp: dict, cfg, mixer: str, ffn: str, x, positions, *,
                  cache=None, cache_index=None, cos_sin=None):
     """Pre-norm residual block -> (x, cache, aux_loss); ``aux_loss`` is the
-    MoE router's, 0 for a dense block."""
+    MoE router's, 0 for a dense block or one without a feed-forward."""
     h = apply_norm(cfg.norm, bp["pre_norm"], x, cfg.norm_eps)
     if mixer == "attn":
         mix, new_cache = attention(bp["mixer"], cfg, h, positions,
                                    cache=cache, cache_index=cache_index,
                                    cos_sin=cos_sin)
     else:
-        mix, new_cache = mamba(bp["mixer"], cfg, h, cache=cache)
+        mix, new_cache = _RECURRENT[mixer](bp["mixer"], cfg, h, cache=cache)
     x = x + mix
+    zero = x.new_zeros((), dtype=torch.float32)
+    if ffn == "none":
+        return x, new_cache, zero
     h = apply_norm(cfg.norm, bp["post_norm"], x, cfg.norm_eps)
     if ffn == "dense":
-        return x + mlp(bp["ffn"], h, cfg.activation), new_cache, \
-            x.new_zeros((), dtype=torch.float32)
+        return x + mlp(bp["ffn"], h, cfg.activation), new_cache, zero
     out = moe_apply(bp["ffn"], cfg, h, activation=cfg.activation)
     return x + out.y, new_cache, out.aux_loss
 
@@ -153,12 +165,16 @@ def _run_segments(params, cfg, x, positions, *, caches=None,
                   cache_index=None, remat=False):
     """Every layer in order -> (x, summed aux_loss). ``caches``
     (per-segment stacked) are updated in place: attention writes its KV
-    slot itself, a Mamba layer's new state and window are copied into its
-    slice. The RoPE angles are computed once for all layers. ``remat``
-    (no caches) recomputes each block's activations in the backward."""
-    cos_sin = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    slot itself, a recurrent layer's (Mamba, mLSTM, sLSTM) new state is
+    copied into its slice. The RoPE angles are computed once for all
+    layers, where a layer attends. ``remat`` (no caches) recomputes each
+    block's activations in the backward."""
+    plan = segment_plan(cfg)
+    cos_sin = (rope_cos_sin(positions, cfg.resolved_head_dim,
+                            cfg.rope_theta)
+               if any(m == "attn" for m, _, _ in plan) else None)
     aux = x.new_zeros((), dtype=torch.float32)
-    for si, (mixer, ffn, _) in enumerate(segment_plan(cfg)):
+    for si, (mixer, ffn, _) in enumerate(plan):
         for j, bp in enumerate(params["segments"][si]):
             if remat:
                 # the model draws no random numbers: no RNG state to keep
@@ -172,9 +188,9 @@ def _run_segments(params, cfg, x, positions, *, caches=None,
                                     cache=lc, cache_index=cache_index,
                                     cos_sin=cos_sin)
             aux = aux + a
-            if lc is not None and mixer == "mamba":
-                lc.h.copy_(nc.h)
-                lc.conv.copy_(nc.conv)
+            if lc is not None and mixer != "attn":
+                for dst, src in zip(lc, nc):
+                    dst.copy_(src)
     return x, aux
 
 
@@ -242,18 +258,26 @@ def prefill(params, cfg: ModelConfig, tokens) -> LMOut:
 
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *, device=None,
                 dtype=None) -> list:
-    """Per-segment stacked caches for decode, zeros, on ``device`` (cuda
-    unless ``device="cpu"``): a KVCache of ``seq_len`` positions for an
-    attention segment, a MambaCache for a Mamba one."""
+    """Per-segment stacked caches for decode on ``device`` (cuda unless
+    ``device="cpu"``), each layer's slice its mixer's empty cache: a
+    KVCache of ``seq_len`` positions for an attention segment, a
+    MambaCache for a Mamba one, an MLSTMCache or SLSTMCache (zeros, the
+    stabiliser m at -1e30) for an xLSTM one."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
     caches = []
     for mixer, _, n in segment_plan(cfg):
-        one = (init_cache(cfg, batch, seq_len, device=device, dtype=dtype)
-               if mixer == "attn"
-               else init_mamba_cache(cfg, batch, device=device, dtype=dtype))
-        caches.append(type(one)(*(t.new_zeros((n,) + t.shape) for t in one)))
+        if mixer == "attn":
+            one = init_cache(cfg, batch, seq_len, device=device, dtype=dtype)
+        elif mixer == "mamba":
+            one = init_mamba_cache(cfg, batch, device=device, dtype=dtype)
+        elif mixer == "mlstm":
+            one = init_mlstm_cache(cfg, batch, device=device, dtype=dtype)
+        else:
+            one = init_slstm_cache(cfg, batch, device=device)
+        caches.append(type(one)(*(t.expand((n,) + t.shape).contiguous()
+                                  for t in one)))
     return caches
 
 

@@ -15,10 +15,10 @@ perturb another's draws.
 
 The reference folds its key with ``jax.random.fold_in`` and seeds numpy
 from the folded key's two uint32 words. The PRNG is threefry2x32 (20
-rounds), which the port implements here in numpy: ``PRNGKey(s)`` is the
-word pair ``[0, s]`` and ``fold_in(k, d)`` is ``threefry2x32(k, [0, d])``,
-so the port emits the reference's event stream bit for bit from the same
-key. The bookkeeping is host logic and stays numpy, as in the reference.
+rounds), which :mod:`repro_torch.prng` implements in numpy: ``PRNGKey(s)``
+is the word pair ``[0, s]`` and ``fold_in(k, d)`` is ``threefry2x32(k, [0,
+d])``, so the port emits the reference's event stream bit for bit from the
+same key. The bookkeeping is host logic and stays numpy, as in the reference.
 
 Shapes stay static: exactly ``k = max(1, round(participation * n_slots))``
 participants are drawn per round from the ACTIVE slots, and leaves are
@@ -33,6 +33,10 @@ from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
+
+from repro_torch.prng import as_key as _as_key
+from repro_torch.prng import fold_in as _fold_in
+from repro_torch.prng import prng_key as _prng_key  # noqa: F401 (callers)
 
 
 @dataclass(frozen=True)
@@ -59,57 +63,7 @@ class RoundEvent(NamedTuple):
     left: np.ndarray             # slot ids that departed this round
 
 
-# ------------------------------------------------------------ threefry2x32
-
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-_PARITY = np.uint32(0x1BD11BDA)
-
-
-def _rotl(x: np.uint32, r: int) -> np.uint32:
-    return np.uint32(((int(x) << r) | (int(x) >> (32 - r))) & 0xFFFFFFFF)
-
-
-def _threefry2x32(key, x0: int, x1: int):
-    """One threefry2x32 block (20 rounds, five key injections) of the
-    counter words (x0, x1) under the key words -> two uint32 words."""
-    k0, k1 = np.uint32(key[0]), np.uint32(key[1])
-    ks = (k0, k1, np.uint32(k0 ^ k1 ^ _PARITY))
-    with np.errstate(over="ignore"):
-        x = [np.uint32(x0) + ks[0], np.uint32(x1) + ks[1]]
-        for i in range(5):
-            for r in _ROTATIONS[i % 2]:
-                x[0] = np.uint32(x[0] + x[1])
-                x[1] = _rotl(x[1], r) ^ x[0]
-            x[0] = np.uint32(x[0] + ks[(i + 1) % 3])
-            x[1] = np.uint32(x[1] + ks[(i + 2) % 3] + np.uint32(i + 1))
-    return np.array(x, dtype=np.uint32)
-
-
-def _prng_key(seed: int) -> np.ndarray:
-    """The key words of ``jax.random.PRNGKey(seed)`` (threefry2x32) for a
-    seed in [0, 2**32): ``[0, seed]``."""
-    seed = int(seed)
-    if not 0 <= seed < 2 ** 32:
-        raise ValueError(f"seed must lie in [0, 2**32), got {seed}")
-    return np.array([0, seed], dtype=np.uint32)
-
-
-def _as_key(key) -> np.ndarray:
-    """An int seed or a uint32[2] key -> the uint32[2] key words."""
-    if isinstance(key, (int, np.integer)):
-        return _prng_key(int(key))
-    words = np.asarray(key)
-    if words.shape != (2,):
-        raise ValueError(f"a key is an int seed or two uint32 words, got "
-                         f"shape {words.shape}")
-    return words.astype(np.uint32)
-
-
-def _fold_in(key, data: int) -> np.ndarray:
-    """``jax.random.fold_in(key, data)`` for threefry2x32 keys:
-    ``threefry2x32(key, [0, data])``."""
-    return _threefry2x32(_as_key(key), 0, int(data) & 0xFFFFFFFF)
-
+# -------------------------------------------------------------------- keys
 
 def _rng_from_key(key) -> np.random.Generator:
     """Host Generator seeded from a key's two uint32 words, as the

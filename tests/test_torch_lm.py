@@ -110,7 +110,8 @@ def test_full_config_is_qwen3_0_6b():
     assert cfg.param_count() == 596_041_728
 
 
-@pytest.mark.parametrize("name", ["gemma-7b", "xlstm_350m"])
+@pytest.mark.parametrize("name", ["gemma-7b", "qwen3_moe_30b_a3b",
+                                  "chameleon_34b"])
 def test_unported_arch_raises(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config(name)
@@ -119,10 +120,12 @@ def test_unported_arch_raises(name):
 
 
 @pytest.mark.parametrize("name", ["minicpm3_4b", "deepseek_v3_671b",
-                                  "whisper_base", "xlstm_350m"])
+                                  "whisper_base", "qwen3_0_6b+mtp"])
 def test_unported_blocks_raise(name):
-    """MLA, MLA/MoE, encoder-decoder and xLSTM blocks are not ported."""
-    cfg = jsmoke_config(name)
+    """MLA, MLA/MoE, encoder-decoder blocks and an MTP head are not
+    ported."""
+    arch, _, mtp = name.partition("+")
+    cfg = jsmoke_config(arch).replace(use_mtp=bool(mtp))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.check_supported(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
