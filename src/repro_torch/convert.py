@@ -12,16 +12,18 @@ port's parameters back in the reference's keys and layouts.
 
 :func:`init_numpy_params` draws parameters in the reference's layout with
 the reference's init scales, so a program without JAX gets full-width
-weights through the same converter: the ``sequence`` kind's are the
-reference's own draw (:mod:`repro_torch.prng`), the conv kinds' come
-from ``numpy.random.default_rng(seed)``.
+weights through the same converter: every kind's arrays are the
+reference's own draw (:mod:`repro_torch.prng`).
 
 The LM's parameters (``repro.models.transformer.init_lm``) are keyed
 ``embed``, ``final_norm/scale``, ``head`` (untied only) and
 ``segments/<s>/<block key>``, where each block array is stacked over the
-segment's layers on a leading axis. :func:`lm_params_from_numpy` unstacks
-them into the port's per-layer dicts (dense weights stay (in, out): the
-port computes ``x @ w``), :func:`lm_params_to_numpy` stacks them back, and
+segment's layers on a leading axis. An encoder-decoder (Whisper) adds
+``cross_norm/...`` and ``cross/{wq,wk,wv,wo}`` to every decoder block,
+``encoder/<block key>`` stacked over its ``n_encoder_layers`` and
+``enc_final_norm/...``. :func:`lm_params_from_numpy` unstacks them into
+the port's per-layer dicts (dense weights stay (in, out): the port
+computes ``x @ w``), :func:`lm_params_to_numpy` stacks them back, and
 :func:`init_numpy_lm_params` draws them in the reference's layout.
 """
 from __future__ import annotations
@@ -172,39 +174,73 @@ def load_npz(path: str, cfg: DVQAEConfig, *, device=None) -> dict:
         return params_from_numpy(dict(data), cfg, device=device)
 
 
+def _conv_arrays(key, c_in: int, c_out: int, ksize: int, nd: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """The reference's ``init_conv2d``/``init_conv2d_transpose`` (nd 2: the
+    kernel from the first half of ``split(key)``) or ``init_conv1d`` (nd 1:
+    from ``key`` itself): a (k, [k,] c_in, c_out) kernel U(±1/sqrt(c_in *
+    k^nd)) and a zero bias."""
+    scale = 1.0 / math.sqrt(c_in * ksize ** nd)
+    kk = prng.split(key, 2)[0] if nd == 2 else key
+    return (prng.uniform(kk, (ksize,) * nd + (c_in, c_out), -scale, scale),
+            np.zeros(c_out, np.float32))
+
+
+def _conv_net_arrays(key, cfg: DVQAEConfig, net: str
+                     ) -> Dict[str, np.ndarray]:
+    """``init_{image,speech}_{encoder,decoder}(key, cfg)`` of the reference,
+    path-keyed under ``net``: the same splits, in the same order."""
+    nd = 2 if cfg.kind == "image" else 1
+    h, M, C = cfg.hidden, cfg.latent_dim, cfg.in_channels
+    if net == "encoder":
+        n_first = 4
+        layers = (("down1", C, h // 2, 4), ("down2", h // 2, h, 4),
+                  ("mid", h, h, 3), ("to_latent", h, M, 1))
+    else:
+        n_first = 3
+        up = 4 if nd == 2 else 3          # transposed 2-D convs, 1-D convs
+        layers = (("from_latent", M, h, 3), ("up1", h, h // 2, up),
+                  ("up2", h // 2, C, up))
+    # the image decoder splits one key more than it uses: 4 + n_res
+    ks = prng.split(key, n_first + cfg.n_res_blocks
+                    + (net == "decoder" and nd == 2))
+    named = [(name, ks[i], c_in, c_out, k)
+             for i, (name, c_in, c_out, k) in enumerate(layers)]
+    for i in range(cfg.n_res_blocks):
+        k1, k2 = prng.split(ks[n_first + i], 2)
+        named += [(f"res{i}/c1", k1, h, h, 3), (f"res{i}/c2", k2, h, h, 1)]
+    flat = {}
+    for name, k, c_in, c_out, ksize in named:
+        kernel, bias = _conv_arrays(k, c_in, c_out, ksize, nd)
+        flat[f"{net}/{name}/kernel"], flat[f"{net}/{name}/bias"] = \
+            kernel, bias
+    return flat
+
+
 def init_numpy_params(cfg: DVQAEConfig, seed: int, *,
                       d_model: Optional[int] = None
                       ) -> Dict[str, np.ndarray]:
-    """Encoder, decoder and codebook in the reference's layout and init
-    scales. The ``sequence`` kind draws the reference's own arrays
-    (``init_dvqae(jax.random.PRNGKey(seed), cfg, d_model=d_model)``)
-    through :mod:`repro_torch.prng`: ``ke, kd, kc = split(key, 3)``, the
-    (in, out) projections U(±1/sqrt(in)) from ``split(ke, 2)`` and the
-    N(0, 1) codebook from ``kc``. The ``image`` and ``speech`` kinds draw
-    from one ``default_rng(seed)``, in this order: conv kernels
-    U(±1/sqrt(c_in * k^d)), zero biases, the N(0, 1) codebook; those
-    arrays differ from the reference's draw."""
+    """Encoder, decoder and codebook in the reference's layout: the
+    reference's own arrays, ``init_dvqae(jax.random.PRNGKey(seed), cfg,
+    d_model=d_model)``, drawn through :mod:`repro_torch.prng`. ``ke, kd,
+    kc = split(key, 3)``; the ``sequence`` kind's (in, out) projections
+    U(±1/sqrt(in)) from ``split(ke, 2)``, the ``image`` and ``speech``
+    kinds' conv kernels U(±1/sqrt(c_in * k^d)) with zero biases through the
+    reference's splits (:func:`_conv_net_arrays`); the N(0, 1) codebook
+    from ``kc``."""
     K, M = cfg.codebook_size, cfg.latent_dim
+    ke, kd, kc = prng.split(prng.prng_key(seed), 3)
     if cfg.kind == "sequence":
-        ke, _, kc = prng.split(prng.prng_key(seed), 3)
         k1, k2 = prng.split(ke, 2)
         s_enc, s_dec = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(M)
         return {"encoder/proj": prng.uniform(k1, (d_model, M), -s_enc, s_enc),
                 "decoder/proj": prng.uniform(k2, (M, d_model), -s_dec, s_dec),
                 "codebook": prng.normal(kc, (K, M))}
-    rng = np.random.default_rng(seed)
-    flat = {}
-    for net, make in zip(_NETS, (make_encoder, make_decoder)):
-        for name, p in make(cfg, d_model=d_model).named_parameters():
-            shape = tuple(p.shape)
-            if name.endswith(".weight"):
-                scale = 1.0 / math.sqrt(math.prod(shape[1:]))
-                w = rng.uniform(-scale, scale, shape).astype(np.float32)
-                flat[_ref_key(net, name)] = w.transpose(_TO_REF[len(shape)])
-            else:
-                flat[_ref_key(net, name)] = np.zeros(shape, np.float32)
-    flat["codebook"] = rng.standard_normal((K, M)).astype(np.float32)
-    return flat
+    if cfg.kind not in ("image", "speech"):
+        raise ValueError(f"unknown DVQ-AE kind {cfg.kind!r}")
+    return {**_conv_net_arrays(ke, cfg, "encoder"),
+            **_conv_net_arrays(kd, cfg, "decoder"),
+            "codebook": prng.normal(kc, (K, M))}
 
 
 def probe_from_numpy(flat: Dict[str, np.ndarray], *,
@@ -279,7 +315,8 @@ def lm_block_spec(cfg: ModelConfig, mixer: str = "attn",
     C) conv kernel), "per_head" (U(±1/sqrt(shape[1])): an expert stack is
     (E, in, out), sLSTM's recurrent ``r`` (NH, DH, 4 DH)), "a_log"
     (``log(1..N)`` on every channel) and "dt_bias" (the inverse softplus
-    of a log-uniform dt in [1e-3, 0.1])."""
+    of a log-uniform dt in [1e-3, 0.1]). An encoder-decoder's block also
+    has ``cross_norm`` and ``cross/{wq,wk,wv,wo}``."""
     d = cfg.d_model
     spec = _norm_spec("pre_norm", cfg.norm, d)
     if mixer == "attn":
@@ -321,6 +358,14 @@ def lm_block_spec(cfg: ModelConfig, mixer: str = "attn",
                      "mixer/bias": ((4 * d,), "zeros"),
                      "mixer/ffn_up": ((d, 2 * ffd), "dense"),
                      "mixer/ffn_down": ((ffd, d), "dense")})
+    if cfg.is_encoder_decoder:
+        hd = cfg.resolved_head_dim
+        nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+        spec.update(_norm_spec("cross_norm", cfg.norm, d))
+        spec.update({"cross/wq": ((d, nq), "dense"),
+                     "cross/wk": ((d, nkv), "dense"),
+                     "cross/wv": ((d, nkv), "dense"),
+                     "cross/wo": ((nq, d), "dense")})
     if ffn == "none":
         return spec
     spec.update(_norm_spec("post_norm", cfg.norm, d))
@@ -340,6 +385,34 @@ def lm_block_spec(cfg: ModelConfig, mixer: str = "attn",
             spec.update({"ffn/shared/wi": ((d, fs), "dense"),
                          "ffn/shared/wg": ((d, fs), "dense"),
                          "ffn/shared/wo": ((fs, d), "dense")})
+    return spec
+
+
+def encoder_block_spec(cfg: ModelConfig) -> Dict[str, tuple]:
+    """One layer of the Whisper encoder (pre_norm, self-attention,
+    post_norm, dense MLP; no cross-attention), as :func:`lm_block_spec`
+    names it."""
+    return lm_block_spec(cfg.replace(is_encoder_decoder=False), "attn",
+                         "dense")
+
+
+def _stacks(cfg: ModelConfig):
+    """(prefix, layers, block spec) of every stacked group of blocks: each
+    segment, then an encoder-decoder's encoder."""
+    out = [(f"segments/{s}", n, lm_block_spec(cfg, mixer, ffn))
+           for s, (mixer, ffn, n) in enumerate(segment_plan(cfg))]
+    if cfg.is_encoder_decoder:
+        out.append(("encoder", cfg.n_encoder_layers,
+                    encoder_block_spec(cfg)))
+    return out
+
+
+def _top_spec(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The arrays outside the stacks: final norm(s); ``embed`` and
+    ``head`` are drawn apart."""
+    spec = _norm_spec("final_norm", cfg.norm, cfg.d_model)
+    if cfg.is_encoder_decoder:
+        spec.update(_norm_spec("enc_final_norm", cfg.norm, cfg.d_model))
     return spec
 
 
@@ -378,36 +451,45 @@ def lm_params_from_numpy(flat: Dict[str, np.ndarray], cfg: ModelConfig, *,
     """Reference path-keyed LM arrays -> the port's parameters on
     ``device`` (cuda unless ``device="cpu"``): ``embed``, ``final_norm``,
     ``head`` (untied only) and ``segments``, a list of per-layer dicts for
-    each segment."""
+    each segment; an encoder-decoder's ``encoder`` (a list of per-layer
+    dicts) and ``enc_final_norm``."""
     check_supported(cfg)
     device = resolve_device(device)
     V, d = cfg.vocab_size, cfg.d_model
     top = {"embed": _tensor(flat, "embed", (V, d), device)}
-    for key, (shape, _) in _norm_spec("final_norm", cfg.norm, d).items():
+    for key, (shape, _) in _top_spec(cfg).items():
         top[key] = _tensor(flat, key, shape, device)
     if not cfg.tie_embeddings:
         top["head"] = _tensor(flat, "head", (d, V), device)
     params = _nest(top)
     params["segments"] = []
-    for s, (mixer, ffn, n) in enumerate(segment_plan(cfg)):
-        spec = lm_block_spec(cfg, mixer, ffn)
-        stacked = {k: _tensor(flat, f"segments/{s}/{k}", (n,) + shape,
-                              device) for k, (shape, _) in spec.items()}
-        params["segments"].append(
-            [_nest({k: t[j] for k, t in stacked.items()}) for j in range(n)])
+    for prefix, n, spec in _stacks(cfg):
+        stacked = {k: _tensor(flat, f"{prefix}/{k}", (n,) + shape, device)
+                   for k, (shape, _) in spec.items()}
+        layers = [_nest({k: t[j] for k, t in stacked.items()})
+                  for j in range(n)]
+        if prefix == "encoder":
+            params["encoder"] = layers
+        else:
+            params["segments"].append(layers)
     return params
 
 
 def lm_params_to_numpy(params: dict, cfg: ModelConfig
                        ) -> Dict[str, np.ndarray]:
     """The port's LM parameters -> reference path-keyed arrays, each block
-    array stacked over its segment's layers."""
-    top = {k: v for k, v in params.items() if k != "segments"}
+    array stacked over its segment's (or the encoder's) layers."""
+    stacks = [(f"segments/{s}", layers)
+              for s, layers in enumerate(params["segments"])]
+    if "encoder" in params:
+        stacks.append(("encoder", params["encoder"]))
+    top = {k: v for k, v in params.items()
+           if k not in ("segments", "encoder")}
     flat = {k: t.detach().cpu().numpy() for k, t in _flatten(top).items()}
-    for s, layers in enumerate(params["segments"]):
+    for prefix, layers in stacks:
         per_layer = [_flatten(bp) for bp in layers]
         for key in per_layer[0]:
-            flat[f"segments/{s}/{key}"] = np.stack(
+            flat[f"{prefix}/{key}"] = np.stack(
                 [pl[key].detach().cpu().numpy() for pl in per_layer])
     return flat
 
@@ -417,8 +499,9 @@ def init_numpy_lm_params(cfg: ModelConfig, seed: int
     """LM arrays in the reference's layout and init scales, float32, drawn
     from one ``default_rng(seed)`` in this order: the embedding N(0, 1) *
     0.02, the untied head (the same, transposed), then each segment's
-    arrays in :func:`lm_block_spec`'s order and inits; norm scales are
-    ones and biases zeros. At the full width of a 13 B model this needs
+    arrays in :func:`lm_block_spec`'s order and inits, then an
+    encoder-decoder's encoder stack (:func:`encoder_block_spec`); norm
+    scales are ones and biases zeros. At the full width of a 13 B model this needs
     its size in host memory twice over: ``models.transformer.init_lm``
     draws on the card instead."""
     check_supported(cfg)
@@ -446,12 +529,12 @@ def init_numpy_lm_params(cfg: ModelConfig, seed: int
         return (np.ones if init == "ones" else np.zeros)(full, np.float32)
 
     flat = {"embed": normal((V, d))}
-    for key, (shape, init) in _norm_spec("final_norm", cfg.norm, d).items():
+    for key, (shape, init) in _top_spec(cfg).items():
         flat[key] = draw(shape, shape, init)
     if not cfg.tie_embeddings:
         flat["head"] = np.ascontiguousarray(normal((V, d)).T)
-    for s, (mixer, ffn, n) in enumerate(segment_plan(cfg)):
-        for key, (shape, init) in lm_block_spec(cfg, mixer, ffn).items():
-            flat[f"segments/{s}/{key}"] = draw((n,) + shape, shape, init) \
+    for prefix, n, spec in _stacks(cfg):
+        for key, (shape, init) in spec.items():
+            flat[f"{prefix}/{key}"] = draw((n,) + shape, shape, init) \
                 .astype(np.float32)
     return flat

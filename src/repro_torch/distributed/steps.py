@@ -4,7 +4,9 @@ Port of ``repro.distributed.steps``' ``build_train_step``,
 ``build_prefill_step`` and ``build_serve_step``. The reference builds each
 for a (data, model) mesh with sharding specs and hands it to ``jit``; the
 port runs on one card with no mesh (sharding is ROADMAP Queue 1's
-distribution item), so each step is a plain function.
+distribution item), so each step is a plain function. An encoder-decoder's
+prefill and serve steps take ``enc_out``, which the caller computes once
+with ``models.transformer.encode_audio`` under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -44,7 +46,15 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     parameters (leaves that require grad, as :func:`init_train_state` and
     ``checkpoint.restore`` give them) and moments are updated in place (the
     reference returns new arrays); ``batch["tokens"]`` is (B, T) int on the
-    parameters' device; the loss is a 0-d tensor there, detached."""
+    parameters' device; the loss is a 0-d tensor there, detached.
+
+    An encoder-decoder config raises: its cross-attention's backward needs
+    the flash backward at unequal query and key lengths, which ROADMAP.md
+    lists (Queue 1, whisper training)."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: training an encoder-decoder needs the flash "
+            f"backward at Tq != Tk; ROADMAP.md lists whisper training")
 
     def train_step(state: TrainState, batch):
         flat = leaves(state.params)
@@ -67,22 +77,25 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig):
 
 
 @torch.no_grad()
-def prefill_step(params, cfg: ModelConfig, tokens: torch.Tensor
-                 ) -> torch.Tensor:
+def prefill_step(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+                 enc_out=None) -> torch.Tensor:
     """Full-sequence forward of (B, T) tokens -> (B, V) logits of the last
     position. The reference computes (B, T, V) logits and keeps the last
     column; the head works per position, so the port applies it to the
-    last position only and never holds the (B, T, V) array."""
-    hidden = T.hidden_states(params, cfg, tokens)
+    last position only and never holds the (B, T, V) array. ``enc_out``:
+    an encoder-decoder's encoder output (the reference's step encodes
+    ``batch["frames"]`` itself)."""
+    hidden = T.hidden_states(params, cfg, tokens, enc_out=enc_out)
     return T._lm_head(params, cfg, hidden[:, -1])
 
 
 @torch.no_grad()
 def serve_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
-               index):
+               index, enc_out=None):
     """One greedy decode step: (B, 1) token at position ``index`` ->
     ((B, 1) int32 argmax of the next-token logits, caches updated in
-    place)."""
-    logits, caches = T.decode_step(params, cfg, token, caches, index)
+    place). ``enc_out``: an encoder-decoder's encoder output."""
+    logits, caches = T.decode_step(params, cfg, token, caches, index,
+                                   enc_out=enc_out)
     next_tok = logits[:, -1, :].argmax(dim=-1).to(torch.int32)
     return next_tok[:, None], caches

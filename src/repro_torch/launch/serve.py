@@ -15,6 +15,13 @@ Port of ``repro.launch.serve``. Runs on the CUDA device unless
         --batch 8 --prompt-len 128 --gen 128
     python -m repro_torch.launch.serve --arch starcoder2-3b \\
         --batch 2 --prompt-len 128 --gen 128
+    python -m repro_torch.launch.serve --arch whisper-base \\
+        --batch 8 --prompt-len 128 --gen 128
+
+An encoder-decoder (whisper-base) encodes frames drawn as the reference's
+launcher draws them, ``jax.random.normal(PRNGKey(seed), (B, n_audio_frames,
+d_model))`` (:mod:`repro_torch.prng`), once, and passes the encoder's
+output to every serve step.
 
 The full ``jamba-v0.1-52b`` (32 layers, 192 GiB in float32) needs more
 than one card and waits for the port of the distribution layer; one
@@ -27,15 +34,23 @@ import time
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import prng, resolve_device
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.data.synthetic import make_tokens
 from repro_torch.distributed import steps as S
 from repro_torch.models import transformer as T
 
 
+def audio_frames(cfg, batch: int, seed: int, device) -> torch.Tensor:
+    """The reference launcher's stub frames, ``jax.random.normal(PRNGKey(
+    seed), (batch, n_audio_frames, d_model))``, on ``device``."""
+    shape = (batch, cfg.n_audio_frames, cfg.d_model)
+    return torch.from_numpy(prng.normal(prng.prng_key(seed), shape)) \
+        .to(device)
+
+
 def generate(params, cfg, prompts: torch.Tensor, gen: int, *,
-             step=S.serve_step) -> torch.Tensor:
+             step=S.serve_step, enc_out=None) -> torch.Tensor:
     """(B, P) prompts -> (B, P + gen) tokens, the prompt then ``gen``
     greedy tokens.
 
@@ -43,14 +58,16 @@ def generate(params, cfg, prompts: torch.Tensor, gen: int, *,
     through the serve step (the decode path; production prefill is
     :func:`repro_torch.distributed.steps.prefill_step`): ``P + gen - 1``
     steps against one cache of ``P + gen`` positions. ``step`` is the
-    serve step, replaceable by a caller that wraps it (to time it)."""
+    serve step, replaceable by a caller that wraps it (to time it).
+    ``enc_out``: an encoder-decoder's encoder output, passed to every
+    step."""
     B, P = prompts.shape
     max_len = P + gen
     caches = T.init_caches(cfg, B, max_len, device=prompts.device)
     tok = prompts[:, :1]
     out = [tok]
     for t in range(max_len - 1):
-        nxt, caches = step(params, cfg, tok, caches, t)
+        nxt, caches = step(params, cfg, tok, caches, t, enc_out=enc_out)
         tok = prompts[:, t + 1:t + 2] if t + 1 < P else nxt
         out.append(tok)
     return torch.cat(out, dim=1)
@@ -78,7 +95,12 @@ def main(argv=None):
     max_len = args.prompt_len + args.gen
 
     t0 = time.time()
-    seqs = generate(params, cfg, prompts, args.gen)
+    enc = None
+    if cfg.is_encoder_decoder:
+        with torch.no_grad():
+            enc = T.encode_audio(params, cfg, audio_frames(
+                cfg, args.batch, args.seed, dev))
+    seqs = generate(params, cfg, prompts, args.gen, enc_out=enc)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0

@@ -3,10 +3,17 @@
 Port of ``repro.models.transformer`` for blocks of self-attention, a
 Mamba mixer or an xLSTM mixer (mLSTM, sLSTM), each with a dense gated MLP,
 a MoE feed-forward or none (the xLSTM blocks): qwen3-0.6b, starcoder2-3b,
-the jamba hybrid and xlstm-350m. The reference groups layers into homogeneous
-segments, stacks each segment's parameters on a leading axis and runs it
-under ``lax.scan``; the port keeps the segments but holds a list of
-per-layer parameter dicts in each and runs a Python loop over them.
+the jamba hybrid, xlstm-350m, qwen3-moe-30b-a3b and chameleon-34b (early
+fusion: its image tokens share the text vocabulary, so it is a plain
+decoder). whisper-base adds the encoder-decoder parts: a non-causal
+encoder over stub frame embeddings (:func:`encode_audio`, RoPE on its q
+and k as the reference applies it) and, in every decoder block, a
+cross-attention to the encoder's output under its own norm (``enc_out=``
+of the forward, prefill, decode and loss). The reference groups layers
+into homogeneous segments, stacks each segment's parameters on a leading
+axis and runs it under ``lax.scan``; the port keeps the segments but holds
+a list of per-layer parameter dicts in each and runs a Python loop over
+them.
 :mod:`repro_torch.convert` unstacks the reference's arrays.
 
 Caches stay stacked per segment, as in the reference: a
@@ -15,11 +22,11 @@ attention, a :class:`MambaCache` (h (n, B, di, N), conv (n, B, K - 1,
 di)) for Mamba and an :class:`MLSTMCache` or :class:`SLSTMCache` for
 xLSTM; a decode step writes each layer's slice in place.
 
-Other mixers (MLA), the Whisper encoder-decoder and the MTP head
-raise ``NotImplementedError``: ROADMAP.md lists them. With ``remat`` each
-block runs under ``torch.utils.checkpoint``, as the reference wraps each
-scanned block body in ``jax.checkpoint``: its activations are recomputed
-in the backward, not kept. The reference's ``hints.residual`` and
+Other mixers (MLA) and the MTP head raise ``NotImplementedError``:
+ROADMAP.md lists them. With ``remat`` each block runs under
+``torch.utils.checkpoint``, as the reference wraps each scanned block body
+in ``jax.checkpoint``: its activations are recomputed in the backward, not
+kept. The reference's ``hints.residual`` and
 ``hints.logits`` are identities off a mesh and are left out, and so is
 ``window_override`` (only the reference's dry run sets it): attention uses
 ``cfg.sliding_window``.
@@ -34,8 +41,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.nn.attention import (attention, init_attention, init_cache,
-                                      rope_cos_sin)
+from repro_torch.nn.attention import (attend, attention, cross_attention,
+                                      init_attention, init_cache,
+                                      init_cross_attention, rope_cos_sin,
+                                      rotate)
 from repro_torch.nn.layers import apply_norm, embed_init, init_mlp, init_norm, mlp
 from repro_torch.nn.moe import init_moe, moe_apply
 from repro_torch.nn.ssm import init_mamba, init_mamba_cache, mamba
@@ -67,25 +76,37 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise for any part of ``cfg`` the port does not run yet."""
     other = sorted({f"{m}/{f}" for m, f, _ in segment_plan(cfg)
                     if m not in MIXERS or f not in FFNS})
-    if other or cfg.is_encoder_decoder or cfg.use_mtp:
-        what = ", ".join(other + ["encoder-decoder"] * cfg.is_encoder_decoder
-                         + ["MTP"] * cfg.use_mtp)
+    if other or cfg.use_mtp:
+        what = ", ".join(other + ["MTP"] * cfg.use_mtp)
         raise NotImplementedError(
             f"{cfg.name}: the port runs attention, Mamba or xLSTM mixers "
-            f"with dense, MoE or no feed-forwards, not {what}; ROADMAP.md "
-            f"lists the rest")
+            f"with dense, MoE or no feed-forwards (and the Whisper "
+            f"encoder-decoder), not {what}; ROADMAP.md lists the rest")
 
 
 def _init_block(cfg, mixer: str, ffn: str, generator) -> dict:
     """A block's parameters; a block with ffn "none" (xLSTM) has neither
-    ``post_norm`` nor ``ffn``, as in the reference."""
+    ``post_norm`` nor ``ffn``, as in the reference. An encoder-decoder's
+    (decoder) block also has ``cross_norm`` and ``cross``."""
     p = {"pre_norm": init_norm(cfg.norm, cfg.d_model),
          "mixer": _INIT_MIXER[mixer](cfg, generator=generator)}
     if ffn != "none":
         p["post_norm"] = init_norm(cfg.norm, cfg.d_model)
         p["ffn"] = (init_mlp(cfg.d_model, cfg.d_ff, generator=generator)
                     if ffn == "dense" else init_moe(cfg, generator=generator))
+    if cfg.is_encoder_decoder:
+        p["cross_norm"] = init_norm(cfg.norm, cfg.d_model)
+        p["cross"] = init_cross_attention(cfg, generator=generator)
     return p
+
+
+def _init_encoder_block(cfg, generator) -> dict:
+    """One layer of the Whisper encoder: pre_norm, self-attention,
+    post_norm, dense MLP."""
+    return {"pre_norm": init_norm(cfg.norm, cfg.d_model),
+            "mixer": init_attention(cfg, generator=generator),
+            "post_norm": init_norm(cfg.norm, cfg.d_model),
+            "ffn": init_mlp(cfg.d_model, cfg.d_ff, generator=generator)}
 
 
 def _to(tree, device):
@@ -101,7 +122,9 @@ def init_lm(generator: Optional[torch.Generator], cfg: ModelConfig, *,
     """Parameters in the reference's shapes and init scales, drawn from
     ``generator`` on its own device and moved to ``device`` (cuda unless
     ``device="cpu"``): ``embed``, ``final_norm``, ``head`` (untied only)
-    and ``segments``, a list (one per segment) of per-layer dicts. A
+    and ``segments``, a list (one per segment) of per-layer dicts; an
+    encoder-decoder also has ``encoder``, a list of ``n_encoder_layers``
+    per-layer dicts, and ``enc_final_norm``. A
     generator on the card draws there: one period of Jamba is 13.3 B
     floats, seconds on the card and ~53 GB of host memory on the CPU. The
     draws differ from the reference's ``jax.random`` ones; weights shared
@@ -121,15 +144,22 @@ def init_lm(generator: Optional[torch.Generator], cfg: ModelConfig, *,
         params["segments"].append(_to(
             [_init_block(cfg, mixer, ffn, generator) for _ in range(n)],
             device))
+    if cfg.is_encoder_decoder:
+        params["encoder"] = _to([_init_encoder_block(cfg, generator)
+                                 for _ in range(cfg.n_encoder_layers)],
+                                device)
+        params["enc_final_norm"] = init_norm(cfg.norm, cfg.d_model)
     return _to(params, device)
 
 
 # ----------------------------------------------------------------- blocks
 
 def _apply_block(bp: dict, cfg, mixer: str, ffn: str, x, positions, *,
-                 cache=None, cache_index=None, cos_sin=None):
+                 cache=None, cache_index=None, cos_sin=None, enc_out=None):
     """Pre-norm residual block -> (x, cache, aux_loss); ``aux_loss`` is the
-    MoE router's, 0 for a dense block or one without a feed-forward."""
+    MoE router's, 0 for a dense block or one without a feed-forward. With
+    ``enc_out`` an encoder-decoder's block attends to it under
+    ``cross_norm`` between its mixer and its feed-forward."""
     h = apply_norm(cfg.norm, bp["pre_norm"], x, cfg.norm_eps)
     if mixer == "attn":
         mix, new_cache = attention(bp["mixer"], cfg, h, positions,
@@ -138,6 +168,9 @@ def _apply_block(bp: dict, cfg, mixer: str, ffn: str, x, positions, *,
     else:
         mix, new_cache = _RECURRENT[mixer](bp["mixer"], cfg, h, cache=cache)
     x = x + mix
+    if cfg.is_encoder_decoder and enc_out is not None:
+        h = apply_norm(cfg.norm, bp["cross_norm"], x, cfg.norm_eps)
+        x = x + cross_attention(bp["cross"], cfg, h, enc_out)
     zero = x.new_zeros((), dtype=torch.float32)
     if ffn == "none":
         return x, new_cache, zero
@@ -162,13 +195,14 @@ def _layer_cache(seg_cache, j: int):
 
 
 def _run_segments(params, cfg, x, positions, *, caches=None,
-                  cache_index=None, remat=False):
+                  cache_index=None, remat=False, enc_out=None):
     """Every layer in order -> (x, summed aux_loss). ``caches``
     (per-segment stacked) are updated in place: attention writes its KV
     slot itself, a recurrent layer's (Mamba, mLSTM, sLSTM) new state is
     copied into its slice. The RoPE angles are computed once for all
     layers, where a layer attends. ``remat`` (no caches) recomputes each
-    block's activations in the backward."""
+    block's activations in the backward. ``enc_out`` goes to every block's
+    cross-attention."""
     plan = segment_plan(cfg)
     cos_sin = (rope_cos_sin(positions, cfg.resolved_head_dim,
                             cfg.rope_theta)
@@ -179,14 +213,15 @@ def _run_segments(params, cfg, x, positions, *, caches=None,
             if remat:
                 # the model draws no random numbers: no RNG state to keep
                 x, a = checkpoint(_remat_block, bp, cfg, mixer, ffn, x,
-                                  positions, cos_sin, use_reentrant=False,
+                                  positions, cos_sin, enc_out,
+                                  use_reentrant=False,
                                   preserve_rng_state=False)
                 aux = aux + a
                 continue
             lc = None if caches is None else _layer_cache(caches[si], j)
             x, nc, a = _apply_block(bp, cfg, mixer, ffn, x, positions,
                                     cache=lc, cache_index=cache_index,
-                                    cos_sin=cos_sin)
+                                    cos_sin=cos_sin, enc_out=enc_out)
             aux = aux + a
             if lc is not None and mixer != "attn":
                 for dst, src in zip(lc, nc):
@@ -194,10 +229,36 @@ def _run_segments(params, cfg, x, positions, *, caches=None,
     return x, aux
 
 
-def _remat_block(bp, cfg, mixer, ffn, x, positions, cos_sin):
+def _remat_block(bp, cfg, mixer, ffn, x, positions, cos_sin, enc_out):
     x, _, a = _apply_block(bp, cfg, mixer, ffn, x, positions,
-                           cos_sin=cos_sin)
+                           cos_sin=cos_sin, enc_out=enc_out)
     return x, a
+
+
+def encode_audio(params, cfg: ModelConfig, frames: torch.Tensor
+                 ) -> torch.Tensor:
+    """The Whisper encoder over stub frame embeddings: (B, n_frames, d) ->
+    (B, n_frames, d). Each layer: non-causal self-attention (RoPE on q and
+    k, as the reference applies it; the flash kernel), then the dense MLP,
+    each pre-norm residual; then ``enc_final_norm``."""
+    if not cfg.is_encoder_decoder:
+        raise ValueError(f"{cfg.name} has no encoder")
+    x = frames
+    B, T, _ = x.shape
+    hd = cfg.resolved_head_dim
+    pos = torch.arange(T, device=x.device)[None].expand(B, T)
+    cos_sin = rope_cos_sin(pos, hd, cfg.rope_theta)
+    for bp in params["encoder"]:
+        h = apply_norm(cfg.norm, bp["pre_norm"], x, cfg.norm_eps)
+        mp = bp["mixer"]
+        q = rotate((h @ mp["wq"]).reshape(B, T, cfg.n_heads, hd), cos_sin)
+        k = rotate((h @ mp["wk"]).reshape(B, T, cfg.n_kv_heads, hd), cos_sin)
+        v = (h @ mp["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+        o = attend(q, k, v, causal=False)
+        x = x + o.reshape(B, T, cfg.n_heads * hd) @ mp["wo"]
+        h = apply_norm(cfg.norm, bp["post_norm"], x, cfg.norm_eps)
+        x = x + mlp(bp["ffn"], h, cfg.activation)
+    return apply_norm(cfg.norm, params["enc_final_norm"], x, cfg.norm_eps)
 
 
 def _lm_head(params, cfg, hidden):
@@ -213,45 +274,50 @@ def _embed(params, cfg, tokens):
     return params["embed"][tokens].to(getattr(torch, cfg.dtype))
 
 
-def _forward_hidden(params, cfg, tokens, *, remat=False):
+def _forward_hidden(params, cfg, tokens, *, remat=False, enc_out=None):
     B, T = tokens.shape
     x = _embed(params, cfg, tokens)
     positions = torch.arange(T, device=tokens.device)[None].expand(B, T)
-    x, aux = _run_segments(params, cfg, x, positions, remat=remat)
+    x, aux = _run_segments(params, cfg, x, positions, remat=remat,
+                           enc_out=enc_out)
     return apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps), aux
 
 
-def hidden_states(params, cfg: ModelConfig, tokens) -> torch.Tensor:
+def hidden_states(params, cfg: ModelConfig, tokens, *, enc_out=None
+                  ) -> torch.Tensor:
     """Teacher-forced pass to the final norm: (B, T) -> (B, T, d)."""
-    return _forward_hidden(params, cfg, tokens)[0]
+    return _forward_hidden(params, cfg, tokens, enc_out=enc_out)[0]
 
 
-def forward(params, cfg: ModelConfig, tokens, *, remat: bool = False
-            ) -> LMOut:
+def forward(params, cfg: ModelConfig, tokens, *, enc_out=None,
+            remat: bool = False) -> LMOut:
     """Teacher-forced forward. tokens: (B, T) int -> logits (B, T, V) and
-    the MoE layers' summed aux loss."""
-    hidden, aux = _forward_hidden(params, cfg, tokens, remat=remat)
+    the MoE layers' summed aux loss; ``enc_out`` (B, Tsrc, d) is an
+    encoder-decoder's :func:`encode_audio` output."""
+    hidden, aux = _forward_hidden(params, cfg, tokens, remat=remat,
+                                  enc_out=enc_out)
     return LMOut(logits=_lm_head(params, cfg, hidden), aux_loss=aux,
                  hidden=hidden)
 
 
-def lm_loss(params, cfg: ModelConfig, tokens, *, remat: bool = True
-            ) -> torch.Tensor:
+def lm_loss(params, cfg: ModelConfig, tokens, *, enc_out=None,
+            remat: bool = True) -> torch.Tensor:
     """Next-token cross-entropy over the (B, T - 1) targets, in float32,
     plus the MoE aux loss (the reference's ``lm_loss`` without its MTP
     branch: :func:`check_supported` refuses MTP). The head runs on the
     first T - 1 positions only, which gives the same logits as the
     reference's slice of the full (B, T, V) array without making it."""
-    hidden, aux = _forward_hidden(params, cfg, tokens, remat=remat)
+    hidden, aux = _forward_hidden(params, cfg, tokens, remat=remat,
+                                  enc_out=enc_out)
     logits = _lm_head(params, cfg, hidden[:, :-1]).float()
     nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                           tokens[:, 1:].reshape(-1).long())
     return nll + aux
 
 
-def prefill(params, cfg: ModelConfig, tokens) -> LMOut:
+def prefill(params, cfg: ModelConfig, tokens, *, enc_out=None) -> LMOut:
     """Prefill = the teacher-forced forward (inference)."""
-    return forward(params, cfg, tokens)
+    return forward(params, cfg, tokens, enc_out=enc_out)
 
 
 # ----------------------------------------------------------------- decode
@@ -281,8 +347,11 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *, device=None,
     return caches
 
 
-def decode_step(params, cfg: ModelConfig, token, caches, index):
-    """One-token decode. token: (B, 1) int; index: the position (int).
+def decode_step(params, cfg: ModelConfig, token, caches, index, *,
+                enc_out=None):
+    """One-token decode. token: (B, 1) int; index: the position (int);
+    ``enc_out`` an encoder-decoder's encoder output, whose k and v every
+    step recomputes (no cross-KV cache, as in the reference).
 
     Returns (logits (B, 1, V), caches), the caches updated in place."""
     B = token.shape[0]
@@ -291,6 +360,6 @@ def decode_step(params, cfg: ModelConfig, token, caches, index):
     positions = torch.full((B, 1), index, dtype=torch.int64,
                            device=token.device)
     x, _ = _run_segments(params, cfg, x, positions, caches=caches,
-                         cache_index=index)
+                         cache_index=index, enc_out=enc_out)
     hidden = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     return _lm_head(params, cfg, hidden), caches

@@ -1,17 +1,20 @@
 """Attention: GQA self-attention with RoPE, qk-norm, sliding window and a
 KV cache.
 
-Port of ``repro.nn.attention`` (self-attention; cross-attention waits for
-the Whisper backbone). Two compute paths, as in the reference:
+Port of ``repro.nn.attention``: self-attention and the Whisper decoder's
+cross-attention. Two compute paths, as in the reference:
 
   * the hand-written flash kernel (:func:`repro_torch.kernels.ops
     .flash_attention`) for every call without a cache mask and with more
-    than one query: prefill and the teacher-forced forward. The reference
+    than one query: prefill, the teacher-forced forward, the Whisper
+    encoder (non-causal) and cross-attention at T > 1 (non-causal, T
+    queries against the encoder's frames). The reference
     picks its plain ``_attend_full`` below 8192^2 score pairs and its
     chunked online softmax above; all three compute the same function.
   * the plain :func:`_attend_full` for a decode step (one query against
-    the cache under its valid-length mask), as the reference computes it
-    outside any kernel.
+    the cache under its valid-length mask, or against the encoder's frames
+    in cross-attention), as the reference computes it outside any
+    kernel.
 
 GQA never repeats k and v: the kernel reads KV head ``h // q_per_kv``,
 and :func:`_attend_full` groups the query heads by KV head.
@@ -186,3 +189,33 @@ def init_cache(cfg, batch: int, seq_len: int, *, device=None,
     shape = (batch, seq_len, cfg.n_kv_heads, hd)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+# ------------------------------------------------ cross-attention (Whisper)
+
+def init_cross_attention(cfg, *, generator: Optional[torch.Generator] = None
+                         ) -> dict:
+    """A decoder block's cross-attention: wq, wk, wv, wo as self-attention
+    draws them, without qk-norm."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    return {"wq": dense_init(d, cfg.n_heads * hd, generator=generator),
+            "wk": dense_init(d, cfg.n_kv_heads * hd, generator=generator),
+            "wv": dense_init(d, cfg.n_kv_heads * hd, generator=generator),
+            "wo": dense_init(cfg.n_heads * hd, d, generator=generator)}
+
+
+def cross_attention(params: dict, cfg, x: torch.Tensor,
+                    enc_out: torch.Tensor) -> torch.Tensor:
+    """x (B, T, d) decoder states, enc_out (B, Tsrc, d) -> (B, T, d).
+    Queries from ``x``, keys and values from ``enc_out``; no RoPE, no
+    qk-norm, no mask. At T > 1 the flash kernel (T queries, Tsrc keys), at
+    a decode step the plain path; k and v are recomputed from ``enc_out``
+    on every call, as in the reference."""
+    B, T, _ = x.shape
+    Ts = enc_out.shape[1]
+    hd = cfg.resolved_head_dim
+    q = (x @ params["wq"]).reshape(B, T, cfg.n_heads, hd)
+    k = (enc_out @ params["wk"]).reshape(B, Ts, cfg.n_kv_heads, hd)
+    v = (enc_out @ params["wv"]).reshape(B, Ts, cfg.n_kv_heads, hd)
+    out = attend(q, k, v, causal=False)
+    return out.reshape(B, T, cfg.n_heads * hd) @ params["wo"]
