@@ -1,10 +1,10 @@
 """Architecture registry of the port.
 
 Port of ``repro.configs.registry`` for the architectures the port runs:
-7 of the reference's 10. ``get_config(name)`` returns the full assigned
+9 of the reference's 10. ``get_config(name)`` returns the full assigned
 config, ``smoke_config`` the reduced same-family variant the CPU tests
-use. Any other assigned architecture (gemma-7b, minicpm3-4b,
-deepseek-v3-671b) raises: ROADMAP.md lists it as still to be ported.
+use. The other assigned architecture (deepseek-v3-671b) raises: ROADMAP.md
+lists it as still to be ported.
 """
 from __future__ import annotations
 
@@ -12,9 +12,10 @@ import importlib
 
 from .base import ModelConfig
 
-#: architectures the port runs: 7 of the reference's ARCH_IDS' 10
+#: architectures the port runs: 9 of the reference's ARCH_IDS' 10
 ARCH_IDS = ("qwen3_0_6b", "jamba_v0_1_52b", "xlstm_350m", "starcoder2_3b",
-            "whisper_base", "qwen3_moe_30b_a3b", "chameleon_34b")
+            "whisper_base", "qwen3_moe_30b_a3b", "chameleon_34b",
+            "gemma_7b", "minicpm3_4b")
 
 # CLI-facing aliases (the assignment's hyphenated ids)
 ALIASES = {"qwen3-0.6b": "qwen3_0_6b",
@@ -23,7 +24,9 @@ ALIASES = {"qwen3-0.6b": "qwen3_0_6b",
            "starcoder2-3b": "starcoder2_3b",
            "whisper-base": "whisper_base",
            "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
-           "chameleon-34b": "chameleon_34b"}
+           "chameleon-34b": "chameleon_34b",
+           "gemma-7b": "gemma_7b",
+           "minicpm3-4b": "minicpm3_4b"}
 
 
 def canonical(name: str) -> str:

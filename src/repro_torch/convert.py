@@ -308,7 +308,7 @@ def _norm_spec(prefix: str, kind: str, d: int) -> dict:
 
 def lm_block_spec(cfg: ModelConfig, mixer: str = "attn",
                   ffn: str = "dense") -> Dict[str, tuple]:
-    """One block of ``mixer`` (attn, mamba, mlstm, slstm) and ``ffn``
+    """One block of ``mixer`` (attn, mla, mamba, mlstm, slstm) and ``ffn``
     (dense, moe, none): reference key -> (shape, init). A block without a
     feed-forward has no ``post_norm``. Inits: "ones", "zeros", "dense"
     (U(±1/sqrt(shape[0])), the fan-in of an (in, out) weight or of a (K,
@@ -329,6 +329,23 @@ def lm_block_spec(cfg: ModelConfig, mixer: str = "attn",
         if cfg.qk_norm:
             spec.update({"mixer/q_norm/scale": ((hd,), "ones"),
                          "mixer/k_norm/scale": ((hd,), "ones")})
+    elif mixer == "mla":
+        m, nq = cfg.mla, cfg.n_heads
+        if m.q_lora_rank:
+            spec.update({"mixer/wq_a": ((d, m.q_lora_rank), "dense"),
+                         "mixer/q_norm/scale": ((m.q_lora_rank,), "ones"),
+                         "mixer/wq_b": ((m.q_lora_rank, nq * m.qk_head_dim),
+                                        "dense")})
+        else:
+            spec["mixer/wq"] = ((d, nq * m.qk_head_dim), "dense")
+        spec.update({
+            "mixer/wkv_a": ((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                            "dense"),
+            "mixer/kv_norm/scale": ((m.kv_lora_rank,), "ones"),
+            "mixer/wkv_b": ((m.kv_lora_rank,
+                             nq * (m.qk_nope_head_dim + m.v_head_dim)),
+                            "dense"),
+            "mixer/wo": ((nq * m.v_head_dim, d), "dense")})
     elif mixer == "mamba":
         s = cfg.ssm
         di, N = s.expand * d, s.d_state

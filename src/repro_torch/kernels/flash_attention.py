@@ -21,8 +21,12 @@ import torch
 from . import _build
 from .pack_bits import _require_cuda
 
-#: head dims the kernel is instantiated for (the smoke config's and qwen3's)
-HEAD_DIMS = (64, 128)
+#: head dims the forward kernel is instantiated for: 64 and 128 (the smoke
+#: configs', qwen3's and the rest), 96 (MLA's q/k width at minicpm3-4b, its
+#: v padded to it) and 256 (gemma-7b)
+HEAD_DIMS = (64, 96, 128, 256)
+#: head dims the backward kernel is instantiated for
+BWD_HEAD_DIMS = (64, 128)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -134,8 +138,9 @@ def _refuse_bwd(q, k, v, o, lse, do, window):
     if lse.shape != (B, Hq, T):
         raise ValueError(f"lse must be (B, Hq, T) = {(B, Hq, T)}, got "
                          f"{tuple(lse.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {D}")
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {BWD_HEAD_DIMS}, got "
+                         f"{D}")
     raise ValueError(f"window must be >= 0, got {window}")
 
 
@@ -165,7 +170,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
               and o.shape == q.shape and do.shape == q.shape
               and k.shape == v.shape and k.shape[:2] == (B, T)
               and k.shape[3] == D and Hkv >= 1 and Hq % Hkv == 0
-              and lse.shape == (B, Hq, T) and D in HEAD_DIMS)
+              and lse.shape == (B, Hq, T) and D in BWD_HEAD_DIMS)
     if not ok:
         _refuse_bwd(q, k, v, o, lse, do, window)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \

@@ -17,11 +17,23 @@ Port of ``repro.launch.serve``. Runs on the CUDA device unless
         --batch 2 --prompt-len 128 --gen 128
     python -m repro_torch.launch.serve --arch whisper-base \\
         --batch 8 --prompt-len 128 --gen 128
+    python -m repro_torch.launch.serve --arch gemma-7b \\
+        --batch 8 --prompt-len 128 --gen 128
+    python -m repro_torch.launch.serve --arch minicpm3-4b \\
+        --batch 8 --prompt-len 128 --gen 128
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch gemma-7b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch minicpm3-4b --smoke --device cpu
 
 An encoder-decoder (whisper-base) encodes frames drawn as the reference's
 launcher draws them, ``jax.random.normal(PRNGKey(seed), (B, n_audio_frames,
 d_model))`` (:mod:`repro_torch.prng`), once, and passes the encoder's
 output to every serve step.
+
+gemma-7b (31.8 GiB of float32 weights, head dim 256) and minicpm3-4b
+(15.9 GiB, Multi-head Latent Attention) run at full width and depth on
+one 80 GB card.
 
 The full ``jamba-v0.1-52b`` (32 layers, 192 GiB in float32) needs more
 than one card and waits for the port of the distribution layer; one

@@ -1,35 +1,37 @@
 """Decoder LM assembly: the training loss, prefill and one-token decode.
 
-Port of ``repro.models.transformer`` for blocks of self-attention, a
-Mamba mixer or an xLSTM mixer (mLSTM, sLSTM), each with a dense gated MLP,
-a MoE feed-forward or none (the xLSTM blocks): qwen3-0.6b, starcoder2-3b,
-the jamba hybrid, xlstm-350m, qwen3-moe-30b-a3b and chameleon-34b (early
-fusion: its image tokens share the text vocabulary, so it is a plain
-decoder). whisper-base adds the encoder-decoder parts: a non-causal
-encoder over stub frame embeddings (:func:`encode_audio`, RoPE on its q
-and k as the reference applies it) and, in every decoder block, a
-cross-attention to the encoder's output under its own norm (``enc_out=``
-of the forward, prefill, decode and loss). The reference groups layers
-into homogeneous segments, stacks each segment's parameters on a leading
-axis and runs it under ``lax.scan``; the port keeps the segments but holds
-a list of per-layer parameter dicts in each and runs a Python loop over
-them.
+Port of ``repro.models.transformer`` for blocks of self-attention,
+Multi-head Latent Attention (:mod:`repro_torch.nn.mla`), a Mamba mixer or
+an xLSTM mixer (mLSTM, sLSTM), each with a dense gated MLP, a MoE
+feed-forward or none (the xLSTM blocks): qwen3-0.6b, starcoder2-3b,
+gemma-7b, minicpm3-4b (MLA), the jamba hybrid, xlstm-350m,
+qwen3-moe-30b-a3b and chameleon-34b (early fusion: its image tokens share
+the text vocabulary, so it is a plain decoder). whisper-base adds the
+encoder-decoder parts: a non-causal encoder over stub frame embeddings
+(:func:`encode_audio`, RoPE on its q and k as the reference applies it)
+and, in every decoder block, a cross-attention to the encoder's output
+under its own norm (``enc_out=`` of the forward, prefill, decode and
+loss). The reference groups layers into homogeneous segments, stacks each
+segment's parameters on a leading axis and runs it under ``lax.scan``;
+the port keeps the segments but holds a list of per-layer parameter dicts
+in each and runs a Python loop over them.
 :mod:`repro_torch.convert` unstacks the reference's arrays.
 
 Caches stay stacked per segment, as in the reference: a
 :class:`KVCache` (n_layers_in_segment, B, S, n_kv, head_dim) for
-attention, a :class:`MambaCache` (h (n, B, di, N), conv (n, B, K - 1,
-di)) for Mamba and an :class:`MLSTMCache` or :class:`SLSTMCache` for
-xLSTM; a decode step writes each layer's slice in place.
+attention, an :class:`MLACache` (c_kv (n, B, S, kv_lora_rank), k_rope
+(n, B, S, qk_rope_head_dim)) for MLA, a :class:`MambaCache` (h (n, B,
+di, N), conv (n, B, K - 1, di)) for Mamba and an :class:`MLSTMCache` or
+:class:`SLSTMCache` for xLSTM; a decode step writes each layer's slice
+in place.
 
-Other mixers (MLA) and the MTP head raise ``NotImplementedError``:
-ROADMAP.md lists them. With ``remat`` each block runs under
-``torch.utils.checkpoint``, as the reference wraps each scanned block body
-in ``jax.checkpoint``: its activations are recomputed in the backward, not
-kept. The reference's ``hints.residual`` and
-``hints.logits`` are identities off a mesh and are left out, and so is
-``window_override`` (only the reference's dry run sets it): attention uses
-``cfg.sliding_window``.
+The MTP head raises ``NotImplementedError``: ROADMAP.md lists it. With
+``remat`` each block runs under ``torch.utils.checkpoint``, as the
+reference wraps each scanned block body in ``jax.checkpoint``: its
+activations are recomputed in the backward, not kept. The reference's
+``hints.residual`` and ``hints.logits`` are identities off a mesh and are
+left out, and so is ``window_override`` (only the reference's dry run
+sets it): attention uses ``cfg.sliding_window``.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ from repro_torch.nn.attention import (attend, attention, cross_attention,
                                       init_cross_attention, rope_cos_sin,
                                       rotate)
 from repro_torch.nn.layers import apply_norm, embed_init, init_mlp, init_norm, mlp
+from repro_torch.nn.mla import init_mla, init_mla_cache, mla_attention
 from repro_torch.nn.moe import init_moe, moe_apply
 from repro_torch.nn.ssm import init_mamba, init_mamba_cache, mamba
 from repro_torch.nn.xlstm import (init_mlstm, init_mlstm_cache, init_slstm,
@@ -65,10 +68,12 @@ def segment_plan(cfg: ModelConfig) -> Tuple[Tuple[str, str, int], ...]:
     return tuple((m, f, n) for m, f, n in runs)
 
 
-MIXERS = ("attn", "mamba", "mlstm", "slstm")
+MIXERS = ("attn", "mla", "mamba", "mlstm", "slstm")
 FFNS = ("dense", "moe", "none")
-_INIT_MIXER = {"attn": init_attention, "mamba": init_mamba,
+_INIT_MIXER = {"attn": init_attention, "mla": init_mla, "mamba": init_mamba,
                "mlstm": init_mlstm, "slstm": init_slstm}
+#: mixers whose decode step writes its own cache slot in place
+_OWN_SLOT = ("attn", "mla")
 _RECURRENT = {"mamba": mamba, "mlstm": mlstm, "slstm": slstm}
 
 
@@ -79,8 +84,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if other or cfg.use_mtp:
         what = ", ".join(other + ["MTP"] * cfg.use_mtp)
         raise NotImplementedError(
-            f"{cfg.name}: the port runs attention, Mamba or xLSTM mixers "
-            f"with dense, MoE or no feed-forwards (and the Whisper "
+            f"{cfg.name}: the port runs attention, MLA, Mamba or xLSTM "
+            f"mixers with dense, MoE or no feed-forwards (and the Whisper "
             f"encoder-decoder), not {what}; ROADMAP.md lists the rest")
 
 
@@ -165,6 +170,9 @@ def _apply_block(bp: dict, cfg, mixer: str, ffn: str, x, positions, *,
         mix, new_cache = attention(bp["mixer"], cfg, h, positions,
                                    cache=cache, cache_index=cache_index,
                                    cos_sin=cos_sin)
+    elif mixer == "mla":
+        mix, new_cache = mla_attention(bp["mixer"], cfg, h, positions,
+                                       cache=cache, cache_index=cache_index)
     else:
         mix, new_cache = _RECURRENT[mixer](bp["mixer"], cfg, h, cache=cache)
     x = x + mix
@@ -197,10 +205,11 @@ def _layer_cache(seg_cache, j: int):
 def _run_segments(params, cfg, x, positions, *, caches=None,
                   cache_index=None, remat=False, enc_out=None):
     """Every layer in order -> (x, summed aux_loss). ``caches``
-    (per-segment stacked) are updated in place: attention writes its KV
-    slot itself, a recurrent layer's (Mamba, mLSTM, sLSTM) new state is
-    copied into its slice. The RoPE angles are computed once for all
-    layers, where a layer attends. ``remat`` (no caches) recomputes each
+    (per-segment stacked) are updated in place: attention and MLA write
+    their cache slot themselves, a recurrent layer's (Mamba, mLSTM, sLSTM)
+    new state is copied into its slice. The RoPE angles are computed once
+    for all layers, where a layer attends (MLA rotates at its own width
+    and computes its own). ``remat`` (no caches) recomputes each
     block's activations in the backward. ``enc_out`` goes to every block's
     cross-attention."""
     plan = segment_plan(cfg)
@@ -223,7 +232,7 @@ def _run_segments(params, cfg, x, positions, *, caches=None,
                                     cache=lc, cache_index=cache_index,
                                     cos_sin=cos_sin, enc_out=enc_out)
             aux = aux + a
-            if lc is not None and mixer != "attn":
+            if lc is not None and mixer not in _OWN_SLOT:
                 for dst, src in zip(lc, nc):
                     dst.copy_(src)
     return x, aux
@@ -326,9 +335,10 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *, device=None,
                 dtype=None) -> list:
     """Per-segment stacked caches for decode on ``device`` (cuda unless
     ``device="cpu"``), each layer's slice its mixer's empty cache: a
-    KVCache of ``seq_len`` positions for an attention segment, a
-    MambaCache for a Mamba one, an MLSTMCache or SLSTMCache (zeros, the
-    stabiliser m at -1e30) for an xLSTM one."""
+    KVCache of ``seq_len`` positions for an attention segment, an MLACache
+    of ``seq_len`` positions for an MLA one, a MambaCache for a Mamba one,
+    an MLSTMCache or SLSTMCache (zeros, the stabiliser m at -1e30) for an
+    xLSTM one."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
@@ -336,6 +346,9 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *, device=None,
     for mixer, _, n in segment_plan(cfg):
         if mixer == "attn":
             one = init_cache(cfg, batch, seq_len, device=device, dtype=dtype)
+        elif mixer == "mla":
+            one = init_mla_cache(cfg, batch, seq_len, device=device,
+                                 dtype=dtype)
         elif mixer == "mamba":
             one = init_mamba_cache(cfg, batch, device=device, dtype=dtype)
         elif mixer == "mlstm":

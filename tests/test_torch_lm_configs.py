@@ -1,11 +1,13 @@
-"""Port parity: qwen3-moe-30b-a3b (128 experts top-8, GQA 32:4, qk-norm)
-and chameleon-34b (early fusion, GQA 64:8, qk-norm) against
+"""Port parity: qwen3-moe-30b-a3b (128 experts top-8, GQA 32:4, qk-norm),
+chameleon-34b (early fusion, GQA 64:8, qk-norm), gemma-7b (16 heads of
+256, GeGLU, tied) and minicpm3-4b (Multi-head Latent Attention) against
 ``repro.models.transformer`` on the reference's own weights, carried
 across by ``repro_torch.convert``.
 
 * ``CONFIG`` and ``SMOKE`` equal the reference's; the full configs'
   parameter counts and every leaf's shape (``jax.eval_shape``: nothing is
-  drawn at full width) are the reference's.
+  drawn at full width) are the reference's; the flash kernel takes the
+  width its attention runs at (MLA's q/k width, its v padded to it).
 * At each ``SMOKE`` config: the converter's round trip bit for bit;
   prefill logits within 1e-3 of the largest logit; a chain of decode steps
   from an empty cache against the reference's teacher-forced logits and
@@ -26,14 +28,15 @@ from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import smoke_config as jsmoke_config  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
-from repro_torch.convert import (lm_params_from_numpy,  # noqa: E402
-                                 lm_params_to_numpy)
+from repro_torch.convert import (init_numpy_lm_params,  # noqa: E402
+                                 lm_params_from_numpy, lm_params_to_numpy)
 from repro_torch.distributed import steps as S  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from test_torch_whisper import _port_shapes  # noqa: E402
 
-ARCHS = ("qwen3_moe_30b_a3b", "chameleon_34b")
+ARCHS = ("qwen3_moe_30b_a3b", "chameleon_34b", "gemma_7b", "minicpm3_4b")
 LOGIT_RTOL = 1e-3                # of the largest |logit|
 
 
@@ -87,19 +90,23 @@ def test_config_equals_reference(arch, getter):
 
 
 @pytest.mark.parametrize("alias,arch", [("qwen3-moe-30b-a3b", ARCHS[0]),
-                                        ("chameleon-34b", ARCHS[1])])
+                                        ("chameleon-34b", ARCHS[1]),
+                                        ("gemma-7b", ARCHS[2]),
+                                        ("minicpm3-4b", ARCHS[3])])
 def test_aliases(alias, arch):
     assert get_config(alias) == get_config(arch)
     assert smoke_config(alias) == smoke_config(arch)
 
 
-@pytest.mark.parametrize("arch,count", [("qwen3_moe_30b_a3b",
-                                         30_532_108_288),
-                                        ("chameleon_34b", 34_293_415_936)])
-def test_full_config_counts_and_leaf_shapes(arch, count):
+@pytest.mark.parametrize("arch,count,width,q_per_kv", [
+    ("qwen3_moe_30b_a3b", 30_532_108_288, 128, 8),
+    ("chameleon_34b", 34_293_415_936, 128, 8),
+    ("gemma_7b", 8_537_677_824, 256, 1),
+    ("minicpm3_4b", 4_261_836_800, 96, 1)])
+def test_full_config_counts_and_leaf_shapes(arch, count, width, q_per_kv):
     """The reference's analytic count, the port's leaf shapes against
-    ``jax.eval_shape`` of the reference's init, and the flash kernel's head
-    dim (128)."""
+    ``jax.eval_shape`` of the reference's init, and the width the flash
+    kernel runs the attention at (MLA's q/k width) among its head dims."""
     cfg, jcfg = get_config(arch), jget_config(arch)
     assert cfg.param_count() == jcfg.param_count() == count
     tree = jax.eval_shape(lambda: JT.init_lm(jax.random.PRNGKey(0), jcfg))
@@ -108,7 +115,8 @@ def test_full_config_counts_and_leaf_shapes(arch, count):
                      for p in path): tuple(leaf.shape) for path, leaf in flat}
     assert _port_shapes(cfg) == want
     T.check_supported(cfg)
-    assert cfg.resolved_head_dim in HEAD_DIMS and cfg.q_per_kv == 8
+    attn = cfg.mla.qk_head_dim if cfg.use_mla else cfg.resolved_head_dim
+    assert attn == width in HEAD_DIMS and cfg.q_per_kv == q_per_kv
 
 
 # -------------------------------------------------------- smoke parity
@@ -120,6 +128,20 @@ def test_params_round_trip(arch):
     assert set(back) == set(flat)
     for key, arr in flat.items():
         assert back[key].tobytes() == np.asarray(arr).tobytes(), key
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_numpy_params_round_trip(arch):
+    """``init_numpy_lm_params`` draws the reference's keys at its shapes,
+    and they go into the port and back bit for bit."""
+    _, _, cfg, _, flat = _twins(arch)
+    drawn = init_numpy_lm_params(cfg, seed=1)
+    assert {k: v.shape for k, v in drawn.items()} == \
+        {k: np.shape(v) for k, v in flat.items()}
+    back = lm_params_to_numpy(lm_params_from_numpy(drawn, cfg, device="cpu"),
+                              cfg)
+    for key, arr in drawn.items():
+        assert back[key].tobytes() == arr.tobytes(), key
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -155,3 +177,11 @@ def test_decode_matches_reference_and_teacher_forced(arch):
         _close_of_max(lg.numpy(), jlg, f"step {t} vs decode")
         _close_of_max(lg.numpy(), want[:, t:t + 1],
                       f"step {t} vs teacher-forced")
+
+
+@pytest.mark.parametrize("alias", ["gemma-7b", "minicpm3-4b"])
+def test_launcher_cli_on_cpu(alias, capsys):
+    seqs = serve.main(["--arch", alias, "--smoke", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "4", "--gen", "3"])
+    assert tuple(seqs.shape) == (2, 7)
+    assert f"arch={smoke_config(alias).name}" in capsys.readouterr().out

@@ -116,6 +116,27 @@ def test_flash_matches_pallas_and_ref(t, causal, window):
                                    rtol=ATTN_TOL)
 
 
+@pytest.mark.parametrize("d,t,tk,hq,hkv,causal", [
+    (96, 70, None, 2, 2, True),              # MLA's q/k width (minicpm3-4b)
+    (96, 40, 90, 2, 1, False),               # Tq < Tk, GQA 2:1
+    (256, 50, None, 2, 2, True),             # gemma-7b's heads
+    (256, 33, 20, 4, 2, False)])             # Tq > Tk, GQA 2:1
+def test_flash_new_head_dims_match_pallas(d, t, tk, hq, hkv, causal):
+    """The head dims the kernel takes beyond 64 and 128: the plain version
+    through ``ops`` against the Pallas kernel in interpret mode (k and v
+    repeated to Hq heads, as the reference's ops does) and its oracle."""
+    q, k, v = _qkv(d + t, 1, t, hq, hkv, d, Tk=tk)
+    got = ops.flash_attention(*_t(q, k, v), causal=causal).numpy()
+    rep = hq // hkv
+    jq, jk, jv = (jnp.asarray(q), jnp.repeat(jnp.asarray(k), rep, axis=2),
+                  jnp.repeat(jnp.asarray(v), rep, axis=2))
+    for want in (flash_attention_pallas(jq, jk, jv, causal=causal,
+                                        interpret=True),
+                 jref.flash_attention_ref(jq, jk, jv, causal=causal)):
+        np.testing.assert_allclose(got, np.asarray(want), atol=ATTN_TOL,
+                                   rtol=ATTN_TOL)
+
+
 @pytest.mark.parametrize("hq,hkv,d", [(8, 2, 16), (4, 2, 64), (4, 4, 128),
                                       (16, 8, 128)])
 def test_flash_gqa_through_ops(hq, hkv, d):
@@ -314,7 +335,9 @@ def test_tf32_rna_bits():
     (1, 160, 2, 2, 128, True, 48),           # window across tiles
     (2, 96, 4, 2, 64, True, 0),              # GQA 2:1
     (1, 130, 4, 1, 128, False, 0),           # GQA 4:1, not causal
-    (1, 77, 2, 2, 64, False, 20)])           # window, not causal
+    (1, 77, 2, 2, 64, False, 20),            # window, not causal
+    (1, 100, 2, 2, 96, True, 0),             # D 96: MLA's q/k width
+    (1, 70, 2, 1, 256, True, 0)])            # D 256: gemma-7b, GQA 2:1
 def test_tf32x3_attention_matches_pallas_and_ref(b, t, hq, hkv, d, causal,
                                                  window):
     q, k, v = _qkv(t * d + hq + window, b, t, hq, hkv, d)

@@ -284,7 +284,7 @@ def test_train_step_refuses_encoder_decoder():
         S.build_train_step(smoke_config(ARCH), TrainConfig())
 
 
-@pytest.mark.parametrize("arch,mtp", [("minicpm3_4b", False),
+@pytest.mark.parametrize("arch,mtp", [("minicpm3_4b", True),
                                       ("qwen3_0_6b", True),
                                       ("whisper_base", True)])
 def test_check_supported_still_refuses_mla_and_mtp(arch, mtp):
