@@ -21,7 +21,9 @@ The LM's parameters (``repro.models.transformer.init_lm``) are keyed
 segment's layers on a leading axis. An encoder-decoder (Whisper) adds
 ``cross_norm/...`` and ``cross/{wq,wk,wv,wo}`` to every decoder block,
 ``encoder/<block key>`` stacked over its ``n_encoder_layers`` and
-``enc_final_norm/...``. :func:`lm_params_from_numpy` unstacks them into
+``enc_final_norm/...``. A config with the MTP head (deepseek-v3) adds
+``mtp/proj``, ``mtp/block/<block key>`` (one attention/dense block, not
+stacked) and ``mtp/norm/...``. :func:`lm_params_from_numpy` unstacks them into
 the port's per-layer dicts (dense weights stay (in, out): the port
 computes ``x @ w``), :func:`lm_params_to_numpy` stacks them back, and
 :func:`init_numpy_lm_params` draws them in the reference's layout.
@@ -425,11 +427,19 @@ def _stacks(cfg: ModelConfig):
 
 
 def _top_spec(cfg: ModelConfig) -> Dict[str, tuple]:
-    """The arrays outside the stacks: final norm(s); ``embed`` and
-    ``head`` are drawn apart."""
-    spec = _norm_spec("final_norm", cfg.norm, cfg.d_model)
+    """The arrays outside the stacks: final norm(s) and the MTP head's
+    (``proj`` N(0, 1) * 0.02 as the embedding, one attention/dense block
+    without a layer axis, its norm); ``embed`` and ``head`` are drawn
+    apart."""
+    d = cfg.d_model
+    spec = _norm_spec("final_norm", cfg.norm, d)
     if cfg.is_encoder_decoder:
-        spec.update(_norm_spec("enc_final_norm", cfg.norm, cfg.d_model))
+        spec.update(_norm_spec("enc_final_norm", cfg.norm, d))
+    if cfg.use_mtp:
+        spec["mtp/proj"] = ((2 * d, d), "normal")
+        spec.update({f"mtp/block/{k}": v for k, v in
+                     lm_block_spec(cfg, "attn", "dense").items()})
+        spec.update(_norm_spec("mtp/norm", cfg.norm, d))
     return spec
 
 
@@ -469,7 +479,7 @@ def lm_params_from_numpy(flat: Dict[str, np.ndarray], cfg: ModelConfig, *,
     ``device`` (cuda unless ``device="cpu"``): ``embed``, ``final_norm``,
     ``head`` (untied only) and ``segments``, a list of per-layer dicts for
     each segment; an encoder-decoder's ``encoder`` (a list of per-layer
-    dicts) and ``enc_final_norm``."""
+    dicts) and ``enc_final_norm``; the MTP head's ``mtp``."""
     check_supported(cfg)
     device = resolve_device(device)
     V, d = cfg.vocab_size, cfg.d_model
@@ -515,8 +525,9 @@ def init_numpy_lm_params(cfg: ModelConfig, seed: int
                          ) -> Dict[str, np.ndarray]:
     """LM arrays in the reference's layout and init scales, float32, drawn
     from one ``default_rng(seed)`` in this order: the embedding N(0, 1) *
-    0.02, the untied head (the same, transposed), then each segment's
-    arrays in :func:`lm_block_spec`'s order and inits, then an
+    0.02, the arrays outside the stacks (:func:`_top_spec`: final norms and
+    the MTP head's), the untied head (N(0, 1) * 0.02, transposed), then
+    each segment's arrays in :func:`lm_block_spec`'s order and inits, then an
     encoder-decoder's encoder stack (:func:`encoder_block_spec`); norm
     scales are ones and biases zeros. At the full width of a 13 B model this needs
     its size in host memory twice over: ``models.transformer.init_lm``
@@ -543,6 +554,8 @@ def init_numpy_lm_params(cfg: ModelConfig, seed: int
             dt = np.exp(u * np.float32(math.log(0.1) - math.log(1e-3))
                         + np.float32(math.log(1e-3)))
             return np.log(np.expm1(np.maximum(dt, np.float32(1e-4))))
+        if init == "normal":
+            return normal(full)
         return (np.ones if init == "ones" else np.zeros)(full, np.float32)
 
     flat = {"embed": normal((V, d))}

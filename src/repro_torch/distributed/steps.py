@@ -40,8 +40,8 @@ def init_train_state(params: dict) -> TrainState:
 
 def build_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     """-> ``train_step(state, batch) -> (state, loss)``, the reference's
-    step on one device: ``lm_loss`` (remat as ``tcfg.remat``) and its
-    gradient, the learning rate ``warmup_cosine(state.step)``, one AdamW
+    step on one device: ``lm_loss`` (remat as ``tcfg.remat``; with the MTP
+    head's term where ``cfg.use_mtp``, deepseek-v3) and its gradient, the learning rate ``warmup_cosine(state.step)``, one AdamW
     update with ``tcfg``'s betas, weight decay and global-norm clip. The
     parameters (leaves that require grad, as :func:`init_train_state` and
     ``checkpoint.restore`` give them) and moments are updated in place (the

@@ -65,20 +65,25 @@
 //  * Blocks of the last query tiles (the most KV tiles when causal) are
 //    numbered first, so the longest blocks start first. Shared memory
 //    (Tile<D>::bytes): 78,848 B at D = 96 and 101 KB at D = 128, two blocks
-//    (8 warps) an SM; 201,728 B at D = 256, one block (4 warps) an SM.
+//    (8 warps) an SM; 152,576 B at D = 192 and 201,728 B at D = 256, one
+//    block (4 warps) an SM.
 //  * When a graph is built, the caller passes lse (B, Hq, Tq) and each row's
 //    log-sum-exp m + log(l) of its scaled scores is stored there for the
 //    backward (flash_attention_bwd.cu); the output is the same bits with or
 //    without it (serving passes null).
-//  * Float32 only, D of 64, 96, 128 or 256: 64 and 128 for the smoke
-//    configs, qwen3 and the rest; 256 for gemma-7b; 96 for MLA's q/k width
-//    (minicpm3-4b), whose 64-wide v the caller pads with zero columns. Every
-//    loop over D steps by 4 (16-byte copies) or 8 (an mma's k or n), and
-//    BK * D / 4 is a multiple of the block's 128 threads at each D, so 96
-//    needs no power of two. At D = 256 the output accumulator alone is 128
-//    registers a thread (o[32][4]). The backward (flash_attention_bwd.cu)
-//    takes 64 and 128 only. ROADMAP lists bf16 and other D as open. wgmma
-//    fed by TMA, the full TF32 rate, is a later step.
+//  * Float32 only, D of 64, 96, 128, 192 or 256: 64 and 128 for the smoke
+//    configs, qwen3 and the rest; 256 for gemma-7b; 96 and 192 for MLA's
+//    q/k widths (minicpm3-4b's 64 + 32 RoPE, deepseek-v3's 128 + 64), whose
+//    narrower v (64, 128) the caller pads with zero columns. Every loop over
+//    D steps by 4 (16-byte copies) or 8 (an mma's k or n), and BK * D / 4 is
+//    a multiple of the block's 128 threads at each D (1,536 = 12 x 128 at
+//    192), so 96 and 192 need no power of two. The output accumulator alone
+//    is 96 registers a thread at D = 192 (o[24][4]) and 128 at D = 256
+//    (o[32][4]). Other head dims up to 256 reach the kernel padded with zero
+//    columns to the next of these (nn/attention.py::attend). The backward
+//    (flash_attention_bwd.cu) takes 64 and 128 only. ROADMAP lists bf16 and
+//    the backward's other D as open. wgmma fed by TMA, the full TF32 rate,
+//    is a later step.
 #include <cuda_runtime.h>
 
 #include "launch.cuh"
@@ -392,6 +397,9 @@ extern "C" int rt_flash_attention(const float* q, const float* k,
                       scale, device, st);
   if (D == 128)
     return launch<128>(q, k, v, out, lse, B, Tq, Tk, Hq, Hkv, causal, window,
+                       scale, device, st);
+  if (D == 192)
+    return launch<192>(q, k, v, out, lse, B, Tq, Tk, Hq, Hkv, causal, window,
                        scale, device, st);
   if (D == 256)
     return launch<256>(q, k, v, out, lse, B, Tq, Tk, Hq, Hkv, causal, window,

@@ -22,9 +22,11 @@ from . import _build
 from .pack_bits import _require_cuda
 
 #: head dims the forward kernel is instantiated for: 64 and 128 (the smoke
-#: configs', qwen3's and the rest), 96 (MLA's q/k width at minicpm3-4b, its
-#: v padded to it) and 256 (gemma-7b)
-HEAD_DIMS = (64, 96, 128, 256)
+#: configs', qwen3's and the rest), 96 and 192 (MLA's q/k widths at
+#: minicpm3-4b and deepseek-v3, v padded to them) and 256 (gemma-7b); other
+#: head dims up to 256 are padded to the next of these by
+#: :func:`repro_torch.nn.attention.attend`
+HEAD_DIMS = (64, 96, 128, 192, 256)
 #: head dims the backward kernel is instantiated for
 BWD_HEAD_DIMS = (64, 128)
 

@@ -25,6 +25,8 @@ Port of ``repro.launch.serve``. Runs on the CUDA device unless
         --arch gemma-7b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch minicpm3-4b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v3-671b --smoke --device cpu
 
 An encoder-decoder (whisper-base) encodes frames drawn as the reference's
 launcher draws them, ``jax.random.normal(PRNGKey(seed), (B, n_audio_frames,
@@ -35,9 +37,12 @@ gemma-7b (31.8 GiB of float32 weights, head dim 256) and minicpm3-4b
 (15.9 GiB, Multi-head Latent Attention) run at full width and depth on
 one 80 GB card.
 
-The full ``jamba-v0.1-52b`` (32 layers, 192 GiB in float32) needs more
-than one card and waits for the port of the distribution layer; one
-8-layer period of it runs in ``chip_smoke.py``.
+The full ``jamba-v0.1-52b`` (32 layers, 192 GiB in float32) and
+``deepseek-v3-671b`` (61 layers, 671.6 B parameters) need more than one
+card and wait for the port of the distribution layer; one 8-layer period
+of Jamba and deepseek-v3's first 4 layers (3 dense, 1 MoE; 58.9 GiB with
+its train-time MTP head, which serving draws but never runs) run in
+``chip_smoke.py``.
 """
 from __future__ import annotations
 

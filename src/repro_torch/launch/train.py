@@ -6,8 +6,11 @@ the CUDA device unless ``--device cpu`` is given:
     python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --steps 20 --batch 8 --seq 1024
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch deepseek-v3-671b --smoke --device cpu
 
-``--smoke`` uses the reduced config. Weights are drawn by
+``--smoke`` uses the reduced config. A config with the MTP head
+(deepseek-v3) trains on ``lm_loss`` with its MTP term. Weights are drawn by
 ``models.transformer.init_lm`` on the run's device from ``--seed``; step
 ``i``'s batch is ``make_tokens`` from a CPU generator seeded by ``(seed,
 i)``. With ``--ckpt-dir`` the state is saved every ``--ckpt-every`` steps

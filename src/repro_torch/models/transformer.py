@@ -4,7 +4,8 @@ Port of ``repro.models.transformer`` for blocks of self-attention,
 Multi-head Latent Attention (:mod:`repro_torch.nn.mla`), a Mamba mixer or
 an xLSTM mixer (mLSTM, sLSTM), each with a dense gated MLP, a MoE
 feed-forward or none (the xLSTM blocks): qwen3-0.6b, starcoder2-3b,
-gemma-7b, minicpm3-4b (MLA), the jamba hybrid, xlstm-350m,
+gemma-7b, minicpm3-4b (MLA), deepseek-v3 (MLA, sigmoid-routed MoE with a
+shared expert, and the MTP head), the jamba hybrid, xlstm-350m,
 qwen3-moe-30b-a3b and chameleon-34b (early fusion: its image tokens share
 the text vocabulary, so it is a plain decoder). whisper-base adds the
 encoder-decoder parts: a non-causal encoder over stub frame embeddings
@@ -25,10 +26,17 @@ di, N), conv (n, B, K - 1, di)) for Mamba and an :class:`MLSTMCache` or
 :class:`SLSTMCache` for xLSTM; a decode step writes each layer's slice
 in place.
 
-The MTP head raises ``NotImplementedError``: ROADMAP.md lists it. With
+A config with ``use_mtp`` (deepseek-v3's Multi-Token Prediction) has
+``params["mtp"]``: ``proj`` (2d, d), one attention/dense ``block`` at
+``resolved_head_dim`` (56 at deepseek-v3, which the flash kernel runs
+padded to 64) and ``norm``. Only :func:`lm_loss` reads it, as in the
+reference: its branch (:func:`mtp_hidden`) predicts token t + 2 from the
+final hidden state at t and the embedding of token t + 1; the forward,
+prefill and decode never run it. With
 ``remat`` each block runs under ``torch.utils.checkpoint``, as the
 reference wraps each scanned block body in ``jax.checkpoint``: its
-activations are recomputed in the backward, not kept. The reference's
+activations are recomputed in the backward, not kept (the MTP block is
+not, as in the reference). The reference's
 ``hints.residual`` and ``hints.logits`` are identities off a mesh and are
 left out, and so is ``window_override`` (only the reference's dry run
 sets it): attention uses ``cfg.sliding_window``.
@@ -78,15 +86,15 @@ _RECURRENT = {"mamba": mamba, "mlstm": mlstm, "slstm": slstm}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for any part of ``cfg`` the port does not run yet."""
+    """Raise for any block of ``cfg`` the port does not run."""
     other = sorted({f"{m}/{f}" for m, f, _ in segment_plan(cfg)
                     if m not in MIXERS or f not in FFNS})
-    if other or cfg.use_mtp:
-        what = ", ".join(other + ["MTP"] * cfg.use_mtp)
+    if other:
         raise NotImplementedError(
             f"{cfg.name}: the port runs attention, MLA, Mamba or xLSTM "
             f"mixers with dense, MoE or no feed-forwards (and the Whisper "
-            f"encoder-decoder), not {what}; ROADMAP.md lists the rest")
+            f"encoder-decoder), not {', '.join(other)}; ROADMAP.md lists "
+            f"the rest")
 
 
 def _init_block(cfg, mixer: str, ffn: str, generator) -> dict:
@@ -129,7 +137,8 @@ def init_lm(generator: Optional[torch.Generator], cfg: ModelConfig, *,
     ``device="cpu"``): ``embed``, ``final_norm``, ``head`` (untied only)
     and ``segments``, a list (one per segment) of per-layer dicts; an
     encoder-decoder also has ``encoder``, a list of ``n_encoder_layers``
-    per-layer dicts, and ``enc_final_norm``. A
+    per-layer dicts, and ``enc_final_norm``; a config with ``use_mtp``
+    also has ``mtp`` (``proj``, ``block``, ``norm``). A
     generator on the card draws there: one period of Jamba is 13.3 B
     floats, seconds on the card and ~53 GB of host memory on the CPU. The
     draws differ from the reference's ``jax.random`` ones; weights shared
@@ -154,6 +163,12 @@ def init_lm(generator: Optional[torch.Generator], cfg: ModelConfig, *,
                                  for _ in range(cfg.n_encoder_layers)],
                                 device)
         params["enc_final_norm"] = init_norm(cfg.norm, cfg.d_model)
+    if cfg.use_mtp:
+        params["mtp"] = _to({
+            "proj": embed_init(2 * cfg.d_model, cfg.d_model,
+                               generator=generator),
+            "block": _init_block(cfg, "attn", "dense", generator),
+            "norm": init_norm(cfg.norm, cfg.d_model)}, device)
     return _to(params, device)
 
 
@@ -309,19 +324,47 @@ def forward(params, cfg: ModelConfig, tokens, *, enc_out=None,
                  hidden=hidden)
 
 
+def _nll(params, cfg, hidden, targets):
+    """Mean cross-entropy of the head's float32 logits on ``hidden`` (B,
+    T', d) against ``targets`` (B, T')."""
+    logits = _lm_head(params, cfg, hidden).float()
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1).long())
+
+
+def mtp_hidden(params, cfg: ModelConfig, hidden, tokens) -> torch.Tensor:
+    """The MTP branch up to the head: the final-norm ``hidden`` (B, T, d)
+    at positions 0 ... T - 3 beside the embeddings of tokens 1 ... T - 2,
+    through ``mtp.proj``, one attention/dense block at positions 0 ... T -
+    3 (its own RoPE angles) and ``mtp.norm`` -> (B, T - 2, d). Its block's
+    aux loss (0: dense) is dropped, as in the reference."""
+    mp = params["mtp"]
+    h = hidden[:, :-2]
+    nxt = _embed(params, cfg, tokens[:, 1:-1]).to(h.dtype)
+    z = torch.cat([h, nxt], dim=-1) @ mp["proj"]
+    B, T = z.shape[:2]
+    pos = torch.arange(T, device=z.device)[None].expand(B, T)
+    z = _apply_block(mp["block"], cfg, "attn", "dense", z, pos)[0]
+    return apply_norm(cfg.norm, mp["norm"], z, cfg.norm_eps)
+
+
 def lm_loss(params, cfg: ModelConfig, tokens, *, enc_out=None,
             remat: bool = True) -> torch.Tensor:
     """Next-token cross-entropy over the (B, T - 1) targets, in float32,
-    plus the MoE aux loss (the reference's ``lm_loss`` without its MTP
-    branch: :func:`check_supported` refuses MTP). The head runs on the
-    first T - 1 positions only, which gives the same logits as the
-    reference's slice of the full (B, T, V) array without making it."""
+    plus the MoE aux loss; with ``cfg.use_mtp`` also ``mtp_loss_weight``
+    times the MTP branch's cross-entropy against tokens 2 ... T - 1
+    (:func:`mtp_hidden`, the shared head), as the reference's ``lm_loss``.
+    The head runs on the first T - 1 positions only, which gives the same
+    logits as the reference's slice of the full (B, T, V) array without
+    making it."""
     hidden, aux = _forward_hidden(params, cfg, tokens, remat=remat,
                                   enc_out=enc_out)
-    logits = _lm_head(params, cfg, hidden[:, :-1]).float()
-    nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                          tokens[:, 1:].reshape(-1).long())
-    return nll + aux
+    loss = _nll(params, cfg, hidden[:, :-1], tokens[:, 1:]) + aux
+    if cfg.use_mtp:
+        loss = loss + cfg.mtp_loss_weight * _nll(
+            params, cfg, mtp_hidden(params, cfg, hidden, tokens),
+            tokens[:, 2:])
+    return loss
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, enc_out=None) -> LMOut:

@@ -11,6 +11,15 @@ cross-attention. Two compute paths, as in the reference:
     queries against the encoder's frames). The reference
     picks its plain ``_attend_full`` below 8192^2 score pairs and its
     chunked online softmax above; all three compute the same function.
+    The kernel is built for the head dims ``HEAD_DIMS``; :func:`attend`
+    runs any other width up to 256 at the narrowest of them that holds it
+    (:func:`flash_width`): q, k and v padded with zero columns, which add
+    0 to every score and every output column, q first multiplied by
+    ``sqrt(D' / D)`` so that the kernel's scale ``1/sqrt(D')`` gives the
+    reference's ``1/sqrt(D)``, and the output sliced back. The MTP block
+    of deepseek-v3 (56) runs at 64, MLA's v (narrower than its q and k)
+    at q/k's width. The CPU takes the same route through the kernel's plain
+    version; nothing falls back to the plain path on the card.
   * the plain :func:`_attend_full` for a decode step (one query against
     the cache under its valid-length mask, or against the encoder's frames
     in cross-attention), as the reference computes it outside any
@@ -30,9 +39,11 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 
 from .layers import dense_init, init_rmsnorm, rmsnorm
 
@@ -93,7 +104,8 @@ def init_attention(cfg, *, generator: Optional[torch.Generator] = None
 
 def _attend_full(q, k, v, *, causal: bool, window: int = 0,
                  kv_len_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q: (B, Tq, Hq, D), k/v: (B, Tk, Hkv, D) -> (B, Tq, Hq, D).
+    """q, k: (B, Tq | Tk, Hq | Hkv, D), v: (B, Tk, Hkv, Dv) -> (B, Tq,
+    Hq, Dv).
 
     Plain softmax attention. Where the reference repeats k and v to Hq
     heads first, this groups the Hq query heads into Hkv groups of
@@ -116,18 +128,41 @@ def _attend_full(q, k, v, *, causal: bool, window: int = 0,
     scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
-    return out.reshape(B, Tq, H, D).to(q.dtype)
+    return out.reshape(B, Tq, H, v.shape[-1]).to(q.dtype)
+
+
+def flash_width(qk_head_dim: int, v_head_dim: int) -> int:
+    """The flash kernel's head dim that q and k of ``qk_head_dim`` and v
+    of ``v_head_dim`` run at: the narrowest of ``HEAD_DIMS`` holding
+    both."""
+    for D in HEAD_DIMS:
+        if D >= max(qk_head_dim, v_head_dim):
+            return D
+    raise NotImplementedError(
+        f"head widths q/k {qk_head_dim}, v {v_head_dim}: the flash "
+        f"kernel's head dims are {HEAD_DIMS}")
 
 
 def attend(q, k, v, *, causal: bool = True, window: int = 0,
            kv_len_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The flash kernel without a cache mask and with more than one query;
-    the plain path otherwise. Inputs RoPE'd and normed; q (B, Tq, Hq, D),
-    k/v (B, Tk, Hkv, D)."""
-    if kv_len_mask is None and q.shape[1] > 1:
-        return ops.flash_attention(q, k, v, causal=causal, window=window)
-    return _attend_full(q, k, v, causal=causal, window=window,
-                        kv_len_mask=kv_len_mask)
+    """The flash kernel without a cache mask and with more than one
+    query; the plain path otherwise. Inputs RoPE'd and normed; q (B, Tq,
+    Hq, D), k (B, Tk, Hkv, D), v (B, Tk, Hkv, Dv) -> (B, Tq, Hq, Dv). The
+    kernel runs at :func:`flash_width` D': q, k and v padded with zero
+    columns to it where narrower, q first scaled by ``sqrt(D' / D)``, the
+    output sliced back to Dv: the function of the scale ``1/sqrt(D)``."""
+    if kv_len_mask is not None or q.shape[1] <= 1:
+        return _attend_full(q, k, v, causal=causal, window=window,
+                            kv_len_mask=kv_len_mask)
+    dqk, dv = q.shape[-1], v.shape[-1]
+    D = flash_width(dqk, dv)
+    if D > dqk:                          # the kernel scales by 1/sqrt(D)
+        q = F.pad(q * math.sqrt(D / dqk), (0, D - dqk))
+        k = F.pad(k, (0, D - dqk))
+    if D > dv:
+        v = F.pad(v, (0, D - dv))
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    return out[..., :dv] if D > dv else out
 
 
 # ----------------------------------------------------------------- module

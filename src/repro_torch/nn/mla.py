@@ -8,20 +8,23 @@ Two paths, as in the reference:
   * prefill (no cache), **expanded**: the latents go through ``wkv_b`` to
     per-head ``k_nope`` and ``v``; k is ``k_nope`` beside the shared
     ``k_rope`` broadcast to every head, so q and k are ``qk_head_dim``
-    wide (96 at minicpm3-4b) and v is ``v_head_dim`` wide (64). The port
-    runs it on the hand-written flash kernel
+    wide (96 at minicpm3-4b, 192 at deepseek-v3) and v is ``v_head_dim``
+    wide (64, 128). The port runs it on the hand-written flash kernel
     (:func:`repro_torch.nn.attention.attend`) at D, the narrowest of its
-    head dims (``HEAD_DIMS``) that holds both widths: v is padded with zero
+    head dims (``HEAD_DIMS``) that holds both widths
+    (:func:`repro_torch.nn.attention.flash_width`): v is padded with zero
     columns to D, and the output's extra columns are sliced off. A zero
-    column of v adds exactly 0 to every output column. At minicpm3-4b D is
-    q/k's own 96, so the kernel's scale ``1/sqrt(D)`` is the reference's
-    ``1/sqrt(qk_head_dim)`` and the sliced output is the same function.
-    Where D is wider than q/k (the SMOKE config's 48 runs at 64), q and k
-    are padded with zero columns too, which add 0 to every score, and q is
-    first multiplied by ``sqrt(D / qk_head_dim)`` so that the kernel's
-    scale gives the reference's. The CPU runs the same padding through the
-    kernel's plain version. Nothing falls back to the plain path on the
-    card; widths past the kernel's widest head dim raise.
+    column of v adds exactly 0 to every output column. At minicpm3-4b and
+    deepseek-v3 D is q/k's own 96 and 192, so the kernel's scale
+    ``1/sqrt(D)`` is the reference's ``1/sqrt(qk_head_dim)`` and the
+    sliced output is the same function. Where D is wider than q/k (the
+    SMOKE configs' 48 runs at 64), q and k are padded with zero columns
+    too, which add 0 to every score, and q is first multiplied by
+    ``sqrt(D / qk_head_dim)`` so that the kernel's scale gives the
+    reference's. That padding is ``attend``'s own, for every head width.
+    The CPU runs it through the kernel's plain version. Nothing falls back
+    to the plain path on the card; widths past the kernel's widest head
+    dim raise.
   * decode (a cache), **absorbed**: ``wkv_b`` is folded into the query and
     the output, so the scores run over the rank-``kv_lora_rank`` latent
     plus the RoPE part and the S-long cache is never expanded. Plain
@@ -42,11 +45,8 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import resolve_device
-
-from repro_torch.kernels.flash_attention import HEAD_DIMS
 
 from .attention import NEG_INF, attend, rope_cos_sin, rotate
 from .layers import dense_init, init_rmsnorm, rmsnorm
@@ -81,17 +81,6 @@ def init_mla(cfg, *, generator: Optional[torch.Generator] = None) -> dict:
     return p
 
 
-def flash_width(qk_head_dim: int, v_head_dim: int) -> int:
-    """The flash kernel's head dim that the expanded prefill runs at: the
-    narrowest of ``HEAD_DIMS`` holding q/k's and v's widths."""
-    for D in HEAD_DIMS:
-        if D >= max(qk_head_dim, v_head_dim):
-            return D
-    raise NotImplementedError(
-        f"MLA widths q/k {qk_head_dim}, v {v_head_dim}: the flash kernel's "
-        f"head dims are {HEAD_DIMS}")
-
-
 def mla_attention(params: dict, cfg, x: torch.Tensor,
                   positions: torch.Tensor, *,
                   cache: Optional[MLACache] = None,
@@ -119,16 +108,11 @@ def mla_attention(params: dict, cfg, x: torch.Tensor,
     k_rope = rotate(ckr[..., None, m.kv_lora_rank:], cos_sin)[:, :, 0]
 
     if cache is None:
-        D = flash_width(dqk, dv)
         kv = (c_kv @ params["wkv_b"]).reshape(B, T, nq, dn + dv)
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([kv[..., :dn],
                        k_rope[:, :, None, :].expand(B, T, nq, dr)], dim=-1)
-        if D > dqk:                      # the kernel scales by 1/sqrt(D)
-            q = F.pad(q * math.sqrt(D / dqk), (0, D - dqk))
-            k = F.pad(k, (0, D - dqk))
-        v = F.pad(kv[..., dn:], (0, D - dv))
-        out = attend(q, k, v, causal=True)[..., :dv]
+        out = attend(q, k, kv[..., dn:], causal=True)
         new_cache = MLACache(c_kv=c_kv, k_rope=k_rope)
     else:
         S = cache.c_kv.shape[1]

@@ -112,27 +112,41 @@ def test_full_config_is_qwen3_0_6b():
 
 @pytest.mark.parametrize("name", ["deepseek_v3_671b", "deepseek-v3-671b"])
 def test_unported_arch_raises(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        smoke_config(name)
+    """deepseek-v3, the last of the reference's ten, resolves now under
+    both spellings; a name that is none of the ten still raises."""
+    for port, jref in ((get_config, jget_config),
+                       (smoke_config, jsmoke_config)):
+        assert dataclasses.asdict(port(name)) == dataclasses.asdict(
+            jref(name))
+    unknown = name.replace("v3", "v9")
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_config(unknown)
+    with pytest.raises(ValueError, match="unknown architecture"):
+        smoke_config(unknown)
 
 
 @pytest.mark.parametrize("name", ["minicpm3_4b+mtp", "deepseek_v3_671b",
                                   "whisper_base+mtp", "qwen3_0_6b+mtp"])
 def test_unported_blocks_raise(name):
-    """An MTP head is not ported: on MLA, on an encoder-decoder, on qwen3,
+    """The MTP head is ported: on MLA, on an encoder-decoder, on qwen3,
     and in deepseek-v3's SMOKE config as the reference has it (MLA/MoE
-    blocks with the MTP head)."""
+    blocks with the MTP head). ``check_supported`` takes each, and
+    ``init_numpy_lm_params`` draws the reference's ``mtp`` leaves at its
+    shapes (``jax.eval_shape`` of its ``init_lm``)."""
     arch, _, mtp = name.partition("+")
     cfg = jsmoke_config(arch)
     if mtp:
         cfg = cfg.replace(use_mtp=True)
     assert cfg.use_mtp
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_numpy_lm_params(cfg, seed=0)
+    T.check_supported(cfg)
+    drawn = init_numpy_lm_params(cfg, seed=0)
+    tree = jax.eval_shape(lambda: JT.init_lm(jax.random.PRNGKey(0), cfg))
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree["mtp"])
+    want = {"mtp/" + "/".join(str(p.key) for p in path): tuple(leaf.shape)
+            for path, leaf in flat}
+    got = {k: v.shape for k, v in drawn.items() if k.startswith("mtp/")}
+    assert got == want and "mtp/proj" in got
+    assert got["mtp/proj"] == (2 * cfg.d_model, cfg.d_model)
 
 
 # -------------------------------------------------------------- converter
@@ -392,6 +406,7 @@ def test_lm_modules_import_neither_jax_nor_reference():
         "import repro_torch.configs.whisper_base\n"
         "import repro_torch.configs.qwen3_moe_30b_a3b\n"
         "import repro_torch.configs.chameleon_34b\n"
+        "import repro_torch.configs.deepseek_v3_671b\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n")

@@ -1,6 +1,8 @@
 """Port parity: qwen3-moe-30b-a3b (128 experts top-8, GQA 32:4, qk-norm),
 chameleon-34b (early fusion, GQA 64:8, qk-norm), gemma-7b (16 heads of
-256, GeGLU, tied) and minicpm3-4b (Multi-head Latent Attention) against
+256, GeGLU, tied), minicpm3-4b (Multi-head Latent Attention) and
+deepseek-v3-671b (MLA, 256 sigmoid-routed experts top-8 with a shared
+one, the MTP head) against
 ``repro.models.transformer`` on the reference's own weights, carried
 across by ``repro_torch.convert``.
 
@@ -36,7 +38,8 @@ from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from test_torch_whisper import _port_shapes  # noqa: E402
 
-ARCHS = ("qwen3_moe_30b_a3b", "chameleon_34b", "gemma_7b", "minicpm3_4b")
+ARCHS = ("qwen3_moe_30b_a3b", "chameleon_34b", "gemma_7b", "minicpm3_4b",
+         "deepseek_v3_671b")
 LOGIT_RTOL = 1e-3                # of the largest |logit|
 
 
@@ -92,7 +95,8 @@ def test_config_equals_reference(arch, getter):
 @pytest.mark.parametrize("alias,arch", [("qwen3-moe-30b-a3b", ARCHS[0]),
                                         ("chameleon-34b", ARCHS[1]),
                                         ("gemma-7b", ARCHS[2]),
-                                        ("minicpm3-4b", ARCHS[3])])
+                                        ("minicpm3-4b", ARCHS[3]),
+                                        ("deepseek-v3-671b", ARCHS[4])])
 def test_aliases(alias, arch):
     assert get_config(alias) == get_config(arch)
     assert smoke_config(alias) == smoke_config(arch)
@@ -102,11 +106,13 @@ def test_aliases(alias, arch):
     ("qwen3_moe_30b_a3b", 30_532_108_288, 128, 8),
     ("chameleon_34b", 34_293_415_936, 128, 8),
     ("gemma_7b", 8_537_677_824, 256, 1),
-    ("minicpm3_4b", 4_261_836_800, 96, 1)])
+    ("minicpm3_4b", 4_261_836_800, 96, 1),
+    ("deepseek_v3_671b", 671_628_154_880, 192, 1)])
 def test_full_config_counts_and_leaf_shapes(arch, count, width, q_per_kv):
     """The reference's analytic count, the port's leaf shapes against
     ``jax.eval_shape`` of the reference's init, and the width the flash
-    kernel runs the attention at (MLA's q/k width) among its head dims."""
+    kernel runs the attention at (MLA's q/k width) among its head dims.
+    deepseek-v3's leaves include its MTP head's (``mtp/...``)."""
     cfg, jcfg = get_config(arch), jget_config(arch)
     assert cfg.param_count() == jcfg.param_count() == count
     tree = jax.eval_shape(lambda: JT.init_lm(jax.random.PRNGKey(0), jcfg))
@@ -179,7 +185,8 @@ def test_decode_matches_reference_and_teacher_forced(arch):
                       f"step {t} vs teacher-forced")
 
 
-@pytest.mark.parametrize("alias", ["gemma-7b", "minicpm3-4b"])
+@pytest.mark.parametrize("alias", ["gemma-7b", "minicpm3-4b",
+                                   "deepseek-v3-671b"])
 def test_launcher_cli_on_cpu(alias, capsys):
     seqs = serve.main(["--arch", alias, "--smoke", "--device", "cpu",
                        "--batch", "2", "--prompt-len", "4", "--gen", "3"])

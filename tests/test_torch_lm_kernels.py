@@ -120,7 +120,9 @@ def test_flash_matches_pallas_and_ref(t, causal, window):
     (96, 70, None, 2, 2, True),              # MLA's q/k width (minicpm3-4b)
     (96, 40, 90, 2, 1, False),               # Tq < Tk, GQA 2:1
     (256, 50, None, 2, 2, True),             # gemma-7b's heads
-    (256, 33, 20, 4, 2, False)])             # Tq > Tk, GQA 2:1
+    (256, 33, 20, 4, 2, False),              # Tq > Tk, GQA 2:1
+    (192, 60, None, 2, 2, True),             # MLA's q/k width (deepseek-v3)
+    (192, 35, 70, 4, 2, False)])             # Tq < Tk, GQA 2:1
 def test_flash_new_head_dims_match_pallas(d, t, tk, hq, hkv, causal):
     """The head dims the kernel takes beyond 64 and 128: the plain version
     through ``ops`` against the Pallas kernel in interpret mode (k and v
@@ -337,7 +339,8 @@ def test_tf32_rna_bits():
     (1, 130, 4, 1, 128, False, 0),           # GQA 4:1, not causal
     (1, 77, 2, 2, 64, False, 20),            # window, not causal
     (1, 100, 2, 2, 96, True, 0),             # D 96: MLA's q/k width
-    (1, 70, 2, 1, 256, True, 0)])            # D 256: gemma-7b, GQA 2:1
+    (1, 70, 2, 1, 256, True, 0),             # D 256: gemma-7b, GQA 2:1
+    (1, 90, 2, 2, 192, True, 0)])            # D 192: deepseek-v3's q/k
 def test_tf32x3_attention_matches_pallas_and_ref(b, t, hq, hkv, d, causal,
                                                  window):
     q, k, v = _qkv(t * d + hq + window, b, t, hq, hkv, d)

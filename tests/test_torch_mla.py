@@ -152,19 +152,20 @@ def test_prefill_matches_reference(kind):
 
 @pytest.mark.parametrize("widths,D", [((64, 32, 64), 96),
                                       ((32, 16, 32), 64),
-                                      ((128, 64, 128), 256)])
+                                      ((128, 64, 128), 192)])
 def test_prefill_runs_the_flash_entry_at_a_kernel_width(widths, D,
                                                          monkeypatch):
     """The prefill calls ``ops.flash_attention`` once, with q, k and v all
-    at one head dim the kernel takes: q/k's own width at minicpm3-4b's MLA
-    widths (96, v 64 zero-padded), the SMOKE config's 48 padded to 64, and
-    deepseek-v3's 192 to 256. Never the plain ``_attend_full``."""
+    at one head dim the kernel takes: q/k's own width at minicpm3-4b's and
+    deepseek-v3's MLA widths (96 and 192, v 64 and 128 zero-padded) and
+    the SMOKE config's 48 padded to 64. Never the plain
+    ``_attend_full``."""
     dn, dr, dv = widths
     cfg = ModelConfig(d_model=128, n_heads=2, n_kv_heads=2, use_mla=True,
                       mla=MLAConfig(q_lora_rank=32, kv_lora_rank=16,
                                     qk_nope_head_dim=dn, qk_rope_head_dim=dr,
                                     v_head_dim=dv))
-    assert M.flash_width(dn + dr, dv) == D
+    assert attn.flash_width(dn + dr, dv) == D
     calls = []
     real = ops.flash_attention
 
@@ -286,17 +287,17 @@ def test_cache_holds_latents_only():
 
 # ------------------------------------------------------- kernel refusals
 
-@pytest.mark.parametrize("d", [32, 48, 160, 192, 512])
+@pytest.mark.parametrize("d", [32, 48, 160, 224, 512])
 def test_flash_forward_refuses_other_head_dims(d):
     """A head dim the forward kernel is not built for raises on the card
     (reached without one through a CPU tensor that reports cuda)."""
     q, k, v = _card(1, 4, 2, d), _card(1, 4, 1, d), _card(1, 4, 1, d)
     with pytest.raises(ValueError, match=rf"the kernel takes head dims "
-                       rf"\(64, 96, 128, 256\), got {d}"):
+                       rf"\(64, 96, 128, 192, 256\), got {d}"):
         flash_attention_cuda(q, k, v)
 
 
-@pytest.mark.parametrize("d", [96, 256])
+@pytest.mark.parametrize("d", [96, 192, 256])
 def test_flash_backward_still_refuses_new_head_dims(d):
     """The backward kernel keeps its own head dims (64, 128)."""
     assert d in HEAD_DIMS and d not in BWD_HEAD_DIMS

@@ -288,9 +288,14 @@ def test_train_step_refuses_encoder_decoder():
                                       ("qwen3_0_6b", True),
                                       ("whisper_base", True)])
 def test_check_supported_still_refuses_mla_and_mtp(arch, mtp):
+    """MLA and the MTP head are ported: ``check_supported`` takes each of
+    these configs with MTP, an encoder-decoder's too, and ``init_lm``
+    draws its ``mtp`` head (``proj`` (2d, d), a block, a norm)."""
     cfg = jsmoke_config(arch).replace(use_mtp=mtp)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.check_supported(cfg)
+    T.check_supported(cfg)
+    params = T.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert set(params["mtp"]) == {"proj", "block", "norm"}
+    assert params["mtp"]["proj"].shape == (2 * cfg.d_model, cfg.d_model)
 
 
 def test_encode_audio_needs_an_encoder():
