@@ -41,24 +41,26 @@ def init_train_state(params: dict) -> TrainState:
 def build_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     """-> ``train_step(state, batch) -> (state, loss)``, the reference's
     step on one device: ``lm_loss`` (remat as ``tcfg.remat``; with the MTP
-    head's term where ``cfg.use_mtp``, deepseek-v3) and its gradient, the learning rate ``warmup_cosine(state.step)``, one AdamW
-    update with ``tcfg``'s betas, weight decay and global-norm clip. The
-    parameters (leaves that require grad, as :func:`init_train_state` and
+    head's term where ``cfg.use_mtp``, deepseek-v3) and its gradient, the
+    learning rate ``warmup_cosine(state.step)``, one AdamW update with
+    ``tcfg``'s betas, weight decay and global-norm clip. The parameters
+    (leaves that require grad, as :func:`init_train_state` and
     ``checkpoint.restore`` give them) and moments are updated in place (the
     reference returns new arrays); ``batch["tokens"]`` is (B, T) int on the
     parameters' device; the loss is a 0-d tensor there, detached.
 
-    An encoder-decoder config raises: its cross-attention's backward needs
-    the flash backward at unequal query and key lengths, which ROADMAP.md
-    lists (Queue 1, whisper training)."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: training an encoder-decoder needs the flash "
-            f"backward at Tq != Tk; ROADMAP.md lists whisper training")
+    An encoder-decoder (whisper) also takes ``batch["frames"]`` (B,
+    n_audio_frames, d_model): the loss is ``lm_loss`` against
+    ``encode_audio`` of them, as the reference's step computes it, and the
+    gradient reaches the encoder through cross-attention's keys and
+    values (the encoder itself is not rematerialised, as in the
+    reference)."""
 
     def train_step(state: TrainState, batch):
         flat = leaves(state.params)
-        loss = T.lm_loss(state.params, cfg, batch["tokens"],
+        enc = (T.encode_audio(state.params, cfg, batch["frames"])
+               if cfg.is_encoder_decoder else None)
+        loss = T.lm_loss(state.params, cfg, batch["tokens"], enc_out=enc,
                          remat=tcfg.remat)
         # an expert no token reached has no gradient: zero, as jax.grad
         grads = torch.autograd.grad(loss, flat, allow_unused=True,

@@ -39,7 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"pack_codes": 0, "unpack_codes": 0, "encode_codes": 0,
             "decode_codes": 0, "vq_nearest": 0, "rmsnorm": 0,
             "flash_attention": 0, "selective_scan": 0,
-            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+            "selective_scan_bwd": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F = ctypes.c_float
@@ -70,13 +71,17 @@ _SIGNATURES = {
     # scale, device, stream
     "rt_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _F, _I, _P),
-    # q, k, v, o, lse, do, scratch, scratch floats, dq, dk, dv, B, T, Hq,
-    # Hkv, D, causal, window, scale, qbegin, qend, device, stream
+    # q, k, v, o, lse, do, scratch, scratch floats, dq, dk, dv, B, Tq, Tk,
+    # Hq, Hkv, D, causal, window, scale, qbegin, qend, device, stream
     "rt_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
-                               _P),
+                               _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                               _I, _P),
     # decay, inp, c, h0, y, h_last, B, T, di, N, device, stream
     "rt_selective_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # decay, inp, c, h0, gy, gh, d_decay, d_inp, dc, dh0, checkpoints,
+    # partials, B, T, di, N, device, stream
+    "rt_selective_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None

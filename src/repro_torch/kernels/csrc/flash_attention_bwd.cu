@@ -12,10 +12,13 @@
 //   P = exp(S * scale - lse),  S = q k^T            (recomputed per tile)
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - delta) elementwise
 //   dK = dS^T Q * scale,  dQ = dS K * scale.
-// Masking is the forward's, with T queries over the same T keys: a key is
-// seen where kpos <= qpos (causal) and kpos > qpos - window (window > 0).
-// Every row sees its own key, so a masked entry's P is exactly 0, as the
-// forward's exp(-1e30 - m) is.
+// Masking is the forward's at any Tq queries over Tk keys (flash_attention.
+// cu): a key is seen where kpos < Tk, kpos <= qpos (causal) and kpos > qpos
+// - window (window > 0), positions counted from 0 on both sides. A masked
+// entry's P is exactly 0, as the forward's exp(-1e30 - m) is; a row that
+// sees no key at all (a window past the last key) gets a zero gradient, as
+// the forward writes it a constant 0. Keys that no query sees (causal, Tk >
+// Tq) get dk = dv = 0.
 //
 // Bound on the H100: tensor operations. At qwen3's training shape (8 x
 // 1,024 tokens, 16 query heads and 8 KV heads of 128, causal) the five
@@ -30,11 +33,12 @@
 // (tf32x3.cuh), which keeps FP32 accuracy; one pass misses the port's
 // 1e-5 * (1 + m) rule at the training shape. The five products and no
 // more: dS goes from the dK/dV kernel to the dQ kernel through a device
-// scratch (272.6 MB at the training shape, ds_rows). It grows as B Hq T^2,
+// scratch (272.6 MB at the training shape, ds_rows). It grows as B Hq Tq Tk,
 // so past a budget the caller launches the kernels on slices of the batch,
 // or over ranges of query rows, whose dK and dV each add to the last
 // range's (kernels/flash_attention.py::bwd_plan). Three launches:
-//  * flash_bwd_delta: one warp a (b, t, h) row, delta into (B, Hq, T).
+//  * flash_bwd_delta: one warp a (b, t, h) query row, delta into (B, Hq,
+//    Tq).
 //  * flash_bwd_dkdv: one block a (b, KV head, 64-key tile), two groups of
 //    4 warps; warp w of a group owns keys 16w to 16w + 15. The groups take
 //    turns over the (query head of the KV head's group, 16-row query tile)
@@ -155,7 +159,8 @@ __device__ __forceinline__ void group_sync(int group) {
 }
 
 // start copying rows [row0, row0 + 64) of a (B, T, H, D) tensor at head h
-// into a (64, D + 4) staging tile; rows past T as zeros
+// into a (64, D + 4) staging tile; rows past T (the tensor's own length) as
+// zeros
 template <int D, int NT>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            int b, int row0, int T, int H,
@@ -360,8 +365,10 @@ __device__ __forceinline__ void rows_by_dims(const float (&x)[NJ][4],
 }
 
 // The dS scratch: 16 x 16 blocks (query block qb, key block kb) of each
-// (b, query head), those a query can see, rows in order: the lower triangle
-// when causal, all of them otherwise. A launch over the query rows [qbegin,
+// (b, query head), those a query can see, rows in order, nbk key blocks a
+// side: when causal the lower triangle, query block qb holding min(qb + 1,
+// nbk) of them (all nbk past the last key block, where Tq > Tk), all nbk
+// otherwise. A launch over the query rows [qbegin,
 // qend) holds only their blocks (ds_rows of them a (b, query head)). A block
 // holds the A fragments of dQ += dS K for its 16 rows and two 8-key steps as
 // the dq kernel's lanes take them: step ks, lane (g, t) at float4
@@ -370,8 +377,11 @@ __device__ __forceinline__ void rows_by_dims(const float (&x)[NJ][4],
 // 16-byte store a lane in dkdv, one 16-byte load in dq.
 __host__ __device__ inline long long ds_block(int qb, int kb, int nb,
                                               int causal) {
-  return causal ? static_cast<long long>(qb) * (qb + 1) / 2 + kb
-                : static_cast<long long>(qb) * nb + kb;
+  const long long q = qb;
+  if (!causal) return q * nb + kb;
+  return (qb <= nb ? q * (q + 1) / 2
+                   : static_cast<long long>(nb) * (nb + 1) / 2 +
+                         (q - nb) * nb) + kb;
 }
 
 // the blocks of query blocks [qb0, qb1) of one (b, query head)
@@ -380,7 +390,7 @@ __host__ __device__ inline long long ds_rows(int qb0, int qb1, int nb,
   return ds_block(qb1, 0, nb, causal) - ds_block(qb0, 0, nb, causal);
 }
 
-// some query of block qb sees some key of block kb (both inside T)
+// some query of block qb sees some key of block kb (inside Tq and Tk)
 __device__ __forceinline__ bool block_seen(int qb, int kb, int causal,
                                            int window) {
   return !(causal && kb > qb) &&
@@ -448,7 +458,8 @@ __device__ __forceinline__ void add_acc(const float* buf,
       acc[n][e] += buf[(n * 4 + e) * 128 + (threadIdx.x & 127)];
 }
 
-// delta[(b, h, t)] = <do, o> of the (b, t, h) row: one warp a row
+// delta[(b, h, t)] = <do, o> of the (b, t, h) row: one warp a row, T the
+// query length
 template <int D>
 __global__ void __launch_bounds__(256)
     flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dO,
@@ -475,17 +486,26 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// the 64-key tiles a dkdv launch over the query rows [qbegin, qend) takes:
+// when causal, those a row of the range can see, and every tile of Tk in
+// the launch that ends at Tq, so that keys no query sees get their zeros
+__host__ __device__ inline int dkdv_tiles(int Tq, int Tk, int causal,
+                                          int qend) {
+  const int keys = causal && qend < Tq ? (qend < Tk ? qend : Tk) : Tk;
+  return (keys + kRes - 1) / kRes;
+}
+
 // R: the launch is one of several over ranges of query rows; without it
-// the range is all T and the range arithmetic folds away
+// the range is all Tq and the range arithmetic folds away
 template <int D, bool R>
 __global__ void __launch_bounds__(128 * kGroups, 1)
     flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ dO,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, float* __restrict__ dk,
-                   float* __restrict__ dv, float* __restrict__ dsb, int T,
-                   int Hq, int Hkv, int causal, int window, float scale,
-                   int qbegin, int qend) {
+                   float* __restrict__ dv, float* __restrict__ dsb, int Tq,
+                   int Tk, int Hq, int Hkv, int causal, int window,
+                   float scale, int qbegin, int qend) {
   using L = Dkdv<D>;
   constexpr int NG = kGroups, SR = kRows, NJ = SR / 8;
   extern __shared__ __align__(16) float smem[];
@@ -498,15 +518,16 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int group = warp / 4, wq = warp % 4, gtid = threadIdx.x & 127;
   const int g = lane >> 2, t = lane & 3;
-  if (!R) qbegin = 0, qend = T;
-  const int n_kt = ((causal ? qend : T) + kRes - 1) / kRes;
+  if (!R) qbegin = 0, qend = Tq;
+  const int n_kt = dkdv_tiles(Tq, Tk, causal, qend);
   const int n_bh = gridDim.x / n_kt;
   const int kt = blockIdx.x / n_bh;      // first tiles see the most rows
   const int bh = blockIdx.x - kt * n_bh;
   const int b = bh / Hkv, hk = bh - b * Hkv, q_per_kv = Hq / Hkv;
   const int k0 = kt * kRes, kw = k0 + 16 * wq;
-  const int n_qt = (T + SR - 1) / SR;
-  // the query tiles that see these keys, then those of this launch
+  const int n_qt = (Tq + SR - 1) / SR;
+  // the query tiles that see these keys, then those of this launch (none
+  // for keys past the last query when causal: their zeros are stored)
   const int seen_begin = causal ? k0 / SR : 0;
   int seen_end = n_qt - 1;               // inclusive
   if (window > 0) seen_end = min(seen_end, (k0 + kRes - 2 + window) / SR);
@@ -514,14 +535,15 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
   const bool first = !R || seen_begin >= c0, last = !R || seen_end < c1;
   const int qt_begin = R ? max(seen_begin, c0) : seen_begin;
   const int per_head = (R ? min(seen_end, c1 - 1) : seen_end) - qt_begin + 1;
-  if (R && per_head <= 0) return;        // another launch's keys
-  const int n_iter = q_per_kv * per_head;  // (head, query tile) pairs
-  const int nb = (T + 15) >> 4, qb0 = qbegin >> 4;
+  if (R && per_head <= 0 && seen_begin <= seen_end)
+    return;                              // another launch's keys
+  const int n_iter = q_per_kv * max(per_head, 0);  // (head, query tile)
+  const int nb = (Tk + 15) >> 4, qb0 = qbegin >> 4;
   const long long ds_base = ds_block(qb0, 0, nb, causal);
 
   // K and V staged raw, then split once into fragment planes
-  stage_rows<D, L::kThreads>(groups, k, b, k0, T, Hkv, hk);
-  stage_rows<D, L::kThreads>(groups + L::kStage, v, b, k0, T, Hkv, hk);
+  stage_rows<D, L::kThreads>(groups, k, b, k0, Tk, Hkv, hk);
+  stage_rows<D, L::kThreads>(groups + L::kStage, v, b, k0, Tk, Hkv, hk);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -541,12 +563,12 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
   auto load = [&](int it) {
     const int h = hk * q_per_kv + it / per_head;
     const int q0 = (qt_begin + it % per_head) * SR;
-    load_tile<D, SR>(raw, q, b, q0, T, Hq, h, gtid);
-    load_tile<D, SR>(raw + L::kTile, dO, b, q0, T, Hq, h, gtid);
+    load_tile<D, SR>(raw, q, b, q0, Tq, Hq, h, gtid);
+    load_tile<D, SR>(raw + L::kTile, dO, b, q0, Tq, Hq, h, gtid);
     if (gtid < SR) {
-      const bool ok = q0 + gtid < T;
+      const bool ok = q0 + gtid < Tq;
       const long long i =
-          ok ? (static_cast<long long>(b) * Hq + h) * T + q0 + gtid : 0;
+          ok ? (static_cast<long long>(b) * Hq + h) * Tq + q0 + gtid : 0;
       cp_async4(rstat + gtid, lse + i, ok);
       cp_async4(rstat + SR + gtid, delta + i, ok);
     }
@@ -571,14 +593,14 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
     if (it + NG < n_iter) load(it + NG);  // under this tile's products
     cp_async_commit();
     const int q0 = (qt_begin + it % per_head) * SR;
-    if (kw >= T || (causal && q0 + SR - 1 < kw) ||
+    if (kw >= Tk || (causal && q0 + SR - 1 < kw) ||
         (window > 0 && kw + 15 <= q0 - window))
       continue;                          // masked for all 16 keys
     // P^T = exp(S^T scale - lse), S^T = K Q^T: rows keys, columns queries;
     // dP^T = V dO^T beside it
     float p[NJ][4], ds[NJ][4];
     rows_by_stream<D, NJ>(Kh, Kl, Qh, Ql, Vh, Vl, Oh, Ol, wq, p, ds);
-    if (q0 + SR <= T && kw + 16 <= T && (!causal || kw + 15 <= q0) &&
+    if (q0 + SR <= Tq && kw + 16 <= Tk && (!causal || kw + 15 <= q0) &&
         (window <= 0 || kw > q0 + SR - 1 - window)) {   // nothing masked
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
@@ -592,7 +614,7 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
         for (int e = 0; e < 4; ++e) {
           const int key = kw + g + 8 * (e >> 1);
           const int qi = 8 * j + t + 4 * (e & 1), qpos = q0 + qi;
-          bool ok = qpos < T && key < T;
+          bool ok = qpos < Tq && key < Tk;
           if (causal) ok = ok && key <= qpos;
           if (window > 0) ok = ok && key > qpos - window;
           p[j][e] = ok ? prob(p[j][e], scale, stat[qi]) : 0.f;
@@ -613,7 +635,7 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int qb = (q0 >> 4) + (j >> 1);
-        if (16 * qb < T && block_seen(qb, kb, causal, window))
+        if (16 * qb < Tq && block_seen(qb, kb, causal, window))
           reinterpret_cast<float4*>(
               bh_ds + (ds_block(qb, kb, nb, causal) - ds_base) * 256)
               [(g >> 2) * 32 + 16 * (j & 1) + 4 * t + (g & 3)] =
@@ -636,9 +658,9 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int key = kw + g + 8 * hr;
-    if (key < T) {
+    if (key < Tk) {
       const long long off =
-          ((static_cast<long long>(b) * T + key) * Hkv + hk) * D;
+          ((static_cast<long long>(b) * Tk + key) * Hkv + hk) * D;
       if (!first) {
         add_row<D>(dk + off, ak, hr);
         add_row<D>(dv + off, av, hr);
@@ -652,8 +674,8 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
 template <int D, bool R>
 __global__ void __launch_bounds__(32 * kDqWarps, 1)
     flash_bwd_dq(const float* __restrict__ k, const float* __restrict__ dsb,
-                 float* __restrict__ dq, int T, int Hq, int Hkv, int causal,
-                 int window, float scale, int qbegin, int qend) {
+                 float* __restrict__ dq, int Tq, int Tk, int Hq, int Hkv,
+                 int causal, int window, float scale, int qbegin, int qend) {
   constexpr int SR = kDqKeys, QW = kDqWarps;
   constexpr int NK = SR / 8;             // 8-key steps a tile
   constexpr int kTile = SR * D;
@@ -665,7 +687,7 @@ __global__ void __launch_bounds__(32 * kDqWarps, 1)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   constexpr int kBlockRows = 16 * QW;
-  if (!R) qbegin = 0, qend = T;
+  if (!R) qbegin = 0, qend = Tq;
   const int n_qt = (qend - qbegin + kBlockRows - 1) / kBlockRows;
   const int n_bh = gridDim.x / n_qt;
   const int qt =
@@ -675,10 +697,11 @@ __global__ void __launch_bounds__(32 * kDqWarps, 1)
   const int q0 = qt * kBlockRows, qw = q0 + 16 * warp, qb = qw >> 4;
   int kt_begin = 0;
   if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / SR;
-  int last_key = T - 1;
+  int last_key = Tk - 1;
   if (causal) last_key = min(last_key, q0 + kBlockRows - 1);
-  const int n_iter = last_key / SR - kt_begin + 1;
-  const int nb = (T + 15) >> 4, qb0 = qbegin >> 4;
+  // no tile at all where every row's window lies past the last key
+  const int n_iter = max(last_key / SR - kt_begin + 1, 0);
+  const int nb = (Tk + 15) >> 4, qb0 = qbegin >> 4;
   const long long ds_base = ds_block(qb0, 0, nb, causal);
   const float* bh_ds = dsb + (static_cast<long long>(b) * Hq + h) *
                                  ds_rows(qb0, (qend + 15) >> 4, nb, causal) *
@@ -701,7 +724,7 @@ __global__ void __launch_bounds__(32 * kDqWarps, 1)
     for (int s = 0; s < NK; ++s) {
       const int kb = kb0 + (s >> 1);
       f[s] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (qw < T && 16 * kb < T && block_seen(qb, kb, causal, window))
+      if (qw < Tq && 16 * kb < Tk && block_seen(qb, kb, causal, window))
         f[s] = reinterpret_cast<const float4*>(
             bh_ds + (ds_block(qb, kb, nb, causal) - ds_base) * 256)
             [(s & 1) * 32 + lane];
@@ -714,18 +737,20 @@ __global__ void __launch_bounds__(32 * kDqWarps, 1)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  load_tile<D, SR, 32 * QW>(raw, k, b, kt_begin * SR, T, Hkv, hk, threadIdx.x);
+  if (n_iter > 0)
+    load_tile<D, SR, 32 * QW>(raw, k, b, kt_begin * SR, Tk, Hkv, hk,
+                              threadIdx.x);
   cp_async_commit();
   float4 f[NK];
-  fetch(0, f);
+  if (n_iter > 0) fetch(0, f);
   for (int it = 0; it < n_iter; ++it) {
     cp_async_wait<0>();
     __syncthreads();                     // landed; the planes are free
     split_tile<D, SR, 32 * QW>(raw, Kh, Kl, threadIdx.x);
     __syncthreads();
     if (it + 1 < n_iter)                 // under this tile's products
-      load_tile<D, SR, 32 * QW>(raw, k, b, (kt_begin + it + 1) * SR, T, Hkv,
-                                hk, threadIdx.x);
+      load_tile<D, SR, 32 * QW>(raw, k, b, (kt_begin + it + 1) * SR, Tk,
+                                Hkv, hk, threadIdx.x);
     cp_async_commit();
     uint32_t xh[NK][4], xl[NK][4];
 #pragma unroll
@@ -737,7 +762,7 @@ __global__ void __launch_bounds__(32 * kDqWarps, 1)
     }
     if (it + 1 < n_iter) fetch(it + 1, f);
     const int ks = (kt_begin + it) * SR;
-    if (qw >= T || (causal && ks > qw + 15) ||
+    if (qw >= Tq || (causal && ks > qw + 15) ||
         (window > 0 && ks + SR - 1 <= qw - window))
       continue;                          // masked for all 16 rows
     frags_by_dims<D, NK>(xh, xl, Kh, Kl, off0, off1, acc);  // dQ += dS K
@@ -746,9 +771,9 @@ __global__ void __launch_bounds__(32 * kDqWarps, 1)
   const int row = qw + 8 * (g >> 2) + (g & 3);
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr)
-    if (row + 4 * hr < T)
+    if (row + 4 * hr < Tq)
       store_row<D>(
-          dq + ((static_cast<long long>(b) * T + row + 4 * hr) * Hq + h) * D,
+          dq + ((static_cast<long long>(b) * Tq + row + 4 * hr) * Hq + h) * D,
           acc, hr, scale);
 }
 
@@ -759,7 +784,7 @@ template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const float* o, const float* lse, const float* dO,
                    float* scratch, float* dq, float* dk, float* dv, int B,
-                   int T, int Hq, int Hkv, int causal, int window,
+                   int Tq, int Tk, int Hq, int Hkv, int causal, int window,
                    float scale, int qbegin, int qend, int device,
                    cudaStream_t st) {
   using L = Dkdv<D>;
@@ -789,9 +814,9 @@ cudaError_t launch(const float* q, const float* k, const float* v,
     return cudaSuccess;
   });
   if (err != cudaSuccess) return err;
-  const long long rows = static_cast<long long>(B) * T * Hq;
+  const long long rows = static_cast<long long>(B) * Tq * Hq;
   const long long kv_blocks = static_cast<long long>(B) * Hkv *
-                              (((causal ? qend : T) + kRes - 1) / kRes);
+                              dkdv_tiles(Tq, Tk, causal, qend);
   const long long dq_blocks =
       static_cast<long long>(B) * Hq *
       ((qend - qbegin + 16 * kDqWarps - 1) / (16 * kDqWarps));
@@ -802,20 +827,21 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   float* dsb = scratch + (rows + 3) / 4 * 4;
   if (qbegin == 0) {                     // the later launches reuse it
     flash_bwd_delta<D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(
-        o, dO, delta, rows, T, Hq);
+        o, dO, delta, rows, Tq, Hq);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  const bool ranged = qbegin > 0 || qend < T;
+  const bool ranged = qbegin > 0 || qend < Tq;
   (ranged ? flash_bwd_dkdv<D, true> : flash_bwd_dkdv<D, false>)
       <<<static_cast<unsigned>(kv_blocks), L::kThreads, L::bytes, st>>>(
-          q, k, v, dO, lse, delta, dk, dv, dsb, T, Hq, Hkv, causal, window,
-          scale, qbegin, qend);
+          q, k, v, dO, lse, delta, dk, dv, dsb, Tq, Tk, Hq, Hkv, causal,
+          window, scale, qbegin, qend);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   (ranged ? flash_bwd_dq<D, true> : flash_bwd_dq<D, false>)
       <<<static_cast<unsigned>(dq_blocks), 32 * kDqWarps, kDqBytes<D>, st>>>(
-          k, dsb, dq, T, Hq, Hkv, causal, window, scale, qbegin, qend);
+          k, dsb, dq, Tq, Tk, Hq, Hkv, causal, window, scale, qbegin,
+          qend);
   return cudaGetLastError();
 }
 
@@ -825,13 +851,13 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// q, o, do, dq (B, T, Hq, D); k, v, dk, dv (B, T, Hkv, D); lse (B, Hq, T);
-// all contiguous float32. One launch of each kernel over the query rows
-// [qbegin, qend) (qbegin a multiple of 128, qend one too or T): the dK and
-// dV of a launch after the first add to what the earlier ones wrote, so the
-// launches of one call take the ranges in order, the first at qbegin 0,
-// the last ending at T (kernels/flash_attention.py::bwd_plan). scratch,
-// scratch_floats long: delta (B, Hq, T), rounded up to a multiple of 4
+// q, o, do, dq (B, Tq, Hq, D); k, v, dk, dv (B, Tk, Hkv, D); lse (B, Hq,
+// Tq); all contiguous float32. One launch of each kernel over the query
+// rows [qbegin, qend) (qbegin a multiple of 128, qend one too or Tq): the
+// dK and dV of a launch after the first add to what the earlier ones wrote,
+// so the launches of one call take the ranges in order, the first at qbegin
+// 0, the last ending at Tq (kernels/flash_attention.py::bwd_plan). scratch,
+// scratch_floats long: delta (B, Hq, Tq), rounded up to a multiple of 4
 // floats, written by the qbegin-0 launch, then the range's dS blocks
 // (ds_rows of them a (b, query head), 256 floats each).
 extern "C" int rt_flash_attention_bwd(const float* q, const float* k,
@@ -839,16 +865,17 @@ extern "C" int rt_flash_attention_bwd(const float* q, const float* k,
                                       const float* lse, const float* dO,
                                       float* scratch,
                                       long long scratch_floats, float* dq,
-                                      float* dk, float* dv, int B, int T,
-                                      int Hq, int Hkv, int D, int causal,
-                                      int window, float scale, int qbegin,
-                                      int qend, int device, void* stream) {
-  if (B < 1 || T < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || window < 0 ||
-      qbegin < 0 || qbegin >= qend || qend > T || qbegin % (16 * kDqWarps) ||
-      (qend < T && qend % (16 * kDqWarps)))
+                                      float* dk, float* dv, int B, int Tq,
+                                      int Tk, int Hq, int Hkv, int D,
+                                      int causal, int window, float scale,
+                                      int qbegin, int qend, int device,
+                                      void* stream) {
+  if (B < 1 || Tq < 1 || Tk < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 ||
+      window < 0 || qbegin < 0 || qbegin >= qend || qend > Tq ||
+      qbegin % (16 * kDqWarps) || (qend < Tq && qend % (16 * kDqWarps)))
     return cudaErrorInvalidValue;
-  const int nb = (T + 15) / 16;
-  if ((static_cast<long long>(B) * Hq * T + 3) / 4 * 4 +
+  const int nb = (Tk + 15) / 16;
+  if ((static_cast<long long>(B) * Hq * Tq + 3) / 4 * 4 +
           static_cast<long long>(B) * Hq * 256 *
               ds_rows(qbegin / 16, (qend + 15) / 16, nb, causal) >
       scratch_floats)
@@ -861,10 +888,12 @@ extern "C" int rt_flash_attention_bwd(const float* q, const float* k,
   if (err != cudaSuccess) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return launch<64>(q, k, v, o, lse, dO, scratch, dq, dk, dv, B, T, Hq, Hkv,
-                      causal, window, scale, qbegin, qend, device, st);
+    return launch<64>(q, k, v, o, lse, dO, scratch, dq, dk, dv, B, Tq, Tk,
+                      Hq, Hkv, causal, window, scale, qbegin, qend, device,
+                      st);
   if (D == 128)
-    return launch<128>(q, k, v, o, lse, dO, scratch, dq, dk, dv, B, T, Hq,
-                       Hkv, causal, window, scale, qbegin, qend, device, st);
+    return launch<128>(q, k, v, o, lse, dO, scratch, dq, dk, dv, B, Tq, Tk,
+                       Hq, Hkv, causal, window, scale, qbegin, qend, device,
+                       st);
   return cudaErrorInvalidValue;
 }

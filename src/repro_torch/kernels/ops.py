@@ -16,18 +16,14 @@ whenever a graph is being built (grad mode on and an input that requires
 grad); under ``torch.no_grad()`` (serving) the kernels are called directly
 and no graph is built. A CPU tensor runs the plain version, which autograd
 differentiates itself. The reference has no backward kernel: XLA
-differentiates plain ``jnp``. On the card:
-
-* ``rmsnorm`` and ``flash_attention``: the backward is a hand-written
-  kernel too (``csrc/rmsnorm_bwd.cu``, ``csrc/flash_attention_bwd.cu``),
-  counted in :data:`LAUNCHES` as ``rmsnorm_bwd`` and ``flash_attention_bwd``.
-  The flash forward saves its output and each row's log-sum-exp for it, so
-  the (B, H, T, T) scores are never materialised.
-* ``selective_scan``: the backward recomputes the plain version on the
-  saved inputs and differentiates that, materialising every state of the
-  scan. Only Jamba runs the scan, and a Jamba period does not fit one card
-  with its optimizer state, so no training path needs it yet; the
-  reverse-time scan kernel comes with the hybrid training path (ROADMAP).
+differentiates plain ``jnp``. On the card each backward is a hand-written
+kernel too (``csrc/rmsnorm_bwd.cu``, ``csrc/flash_attention_bwd.cu``,
+``csrc/selective_scan_bwd.cu``), counted in :data:`LAUNCHES` as
+``rmsnorm_bwd``, ``flash_attention_bwd`` and ``selective_scan_bwd``. The
+flash forward saves its output and each row's log-sum-exp for its
+backward, so the (B, H, Tq, Tk) scores are never materialised; the scan's
+backward keeps a state every 16 steps and recomputes the rest, so the
+scan's states are never all held.
 """
 from __future__ import annotations
 
@@ -40,7 +36,8 @@ from .encode_codes import encode_codes_cuda
 from .flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
 from .pack_bits import pack_codes_cuda, unpack_codes_cuda
 from .rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
-from .selective_scan import check_scan_args, selective_scan_cuda
+from .selective_scan import (check_scan_args, selective_scan_bwd_cuda,
+                             selective_scan_cuda)
 from .vq_nn import vq_nearest_cuda
 
 
@@ -55,20 +52,6 @@ def _on_card(t: torch.Tensor) -> bool:
 
 def _builds_graph(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
-def _recompute_grads(ctx, plain, grads):
-    """Gradients of ``plain(*saved inputs)`` for the inputs that need one,
-    ``grads`` being those of its outputs (None for an input that does
-    not)."""
-    inputs = [t.detach().requires_grad_(need) for t, need in
-              zip(ctx.saved_tensors, ctx.needs_input_grad)]
-    wanted = [t for t in inputs if t.requires_grad]
-    with torch.enable_grad():
-        outs = plain(*inputs)
-    outs = outs if isinstance(outs, tuple) else (outs,)
-    found = iter(torch.autograd.grad(outs, wanted, grads, allow_unused=True))
-    return tuple(next(found) if t.requires_grad else None for t in inputs)
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -109,9 +92,8 @@ class _FlashAttention(torch.autograd.Function):
 
 
 class _SelectiveScan(torch.autograd.Function):
-    """The scan kernel forward, the plain version's gradient back, through
-    y, h_last or both (autograd hands zeros for an output with none): the
-    one backward that is a recompute, not a kernel (module docstring)."""
+    """The scan kernel forward, the selective_scan_bwd kernel back, through
+    y, h_last or both (autograd hands zeros for an output with none)."""
 
     @staticmethod
     def forward(ctx, decay, inp, c, h0):
@@ -120,7 +102,10 @@ class _SelectiveScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gh):
-        return _recompute_grads(ctx, ref.selective_scan_ref, (gy, gh))
+        grads = selective_scan_bwd_cuda(*ctx.saved_tensors, gy.contiguous(),
+                                        gh.contiguous())
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
 
 
 def vq_nearest(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:

@@ -315,17 +315,21 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             lse: torch.Tensor, do: torch.Tensor, *,
                             causal: bool = True, window: int = 0):
     """Gradients of :func:`flash_attention_ref` by the backward kernel's
-    formula, queries and keys sharing T: ``P = exp(S*scale - lse)`` on the
-    seen keys (0 elsewhere), ``delta = <do, o>`` a row, ``dV = P^T dO``,
-    ``dS = P*(dO V^T - delta)``, ``dQ = dS K*scale``, ``dK = dS^T Q*scale``,
-    each KV head's gradient summed over its query heads -> (dq, dk, dv)."""
-    B, T, H, D = q.shape
-    Hkv = k.shape[2]
+    formula, Tq queries (q, o, do (B, Tq, Hq, D), lse (B, Hq, Tq)) over Tk
+    keys (k, v (B, Tk, Hkv, D)) under the forward's mask: ``P = exp(S*scale
+    - lse)`` on the seen keys (0 elsewhere), ``delta = <do, o>`` a row,
+    ``dV = P^T dO``, ``dS = P*(dO V^T - delta)``, ``dQ = dS K*scale``,
+    ``dK = dS^T Q*scale``, each KV head's gradient summed over its query
+    heads -> (dq, dk, dv). A row that sees no key (a window past the last
+    key) gets none: the flash kernel writes it a constant 0 (the plain
+    forward averages v there)."""
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(D)
     qf, kf, vf, dof = q.float(), _kv_heads(k, H), _kv_heads(v, H), \
         do.float()
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-    mask = _mask(T, T, causal, window, q.device)
+    mask = _mask(Tq, Tk, causal, window, q.device)
     p = torch.where(mask, torch.exp(s - lse.float()[..., None]),
                     torch.zeros_like(s))
     delta = (dof * o.float()).sum(-1).transpose(1, 2)        # (B, H, T)
@@ -335,7 +339,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
 
     def per_kv_head(t):
-        return t.reshape(B, T, Hkv, H // Hkv, D).sum(3)
+        return t.reshape(B, Tk, Hkv, H // Hkv, D).sum(3)
 
     return dq.to(q.dtype), per_kv_head(dk).to(k.dtype), \
         per_kv_head(dv).to(v.dtype)
@@ -353,3 +357,28 @@ def selective_scan_ref(decay: torch.Tensor, inp: torch.Tensor,
         h = d[:, t] * h + i[:, t]
         ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
     return torch.stack(ys, 1), h
+
+
+def selective_scan_bwd_ref(decay: torch.Tensor, inp: torch.Tensor,
+                           c: torch.Tensor, h0: torch.Tensor,
+                           gy: torch.Tensor, gh: torch.Tensor):
+    """Gradients of :func:`selective_scan_ref` for the output gradients
+    ``gy`` (B, T, di) and ``gh`` (B, di, N), by the backward kernel's
+    reverse-time recurrence: ``g_t = gy_t * c_t + decay_{t+1} * g_{t+1}``
+    (g_{T-1} also takes gh), ``d_inp_t = g_t``, ``d_decay_t = g_t *
+    h_{t-1}``, ``dc_t = sum_d gy_t[d] * h_t[d]``, ``dh0 = decay_0 * g_0``
+    -> (d_decay, d_inp, dc, dh0), float32. Every state of the forward is
+    kept (the kernel recomputes them from checkpoints)."""
+    d, x, cf, gyf = decay.float(), inp.float(), c.float(), gy.float()
+    hs = [h0.float()]
+    for t in range(d.shape[1]):
+        hs.append(d[:, t] * hs[-1] + x[:, t])
+    g_next, dd, dx, dc = gh.float(), [], [], []
+    for t in reversed(range(d.shape[1])):
+        g = gyf[:, t, :, None] * cf[:, t, None, :] + g_next
+        dx.append(g)
+        dd.append(g * hs[t])
+        dc.append(torch.einsum("bdn,bd->bn", hs[t + 1], gyf[:, t]))
+        g_next = d[:, t] * g
+    return (torch.stack(dd[::-1], 1), torch.stack(dx[::-1], 1),
+            torch.stack(dc[::-1], 1), g_next)

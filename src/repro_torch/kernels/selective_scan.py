@@ -8,7 +8,10 @@ Port of ``repro.kernels.selective_scan``::
 returning ``(y, h_last)``. The kernel is ``csrc/selective_scan.cu``; its
 plain version is :func:`repro_torch.kernels.ref.selective_scan_ref`. The
 kernel keeps each channel's state in registers, so it takes N <= 16
-(Mamba's and Jamba's ``d_state`` is 16).
+(Mamba's and Jamba's ``d_state`` is 16). Its backward is
+``csrc/selective_scan_bwd.cu`` (:func:`selective_scan_bwd_cuda`, plain
+version :func:`repro_torch.kernels.ref.selective_scan_bwd_ref`), which
+takes the same arguments.
 """
 from __future__ import annotations
 
@@ -18,6 +21,9 @@ from . import _build
 
 #: the most states a channel may carry (the kernel holds them in registers)
 MAX_STATE = 16
+#: the backward's (channel, state) threads a block, and its checkpointed
+#: chunk's steps (``csrc/selective_scan_bwd.cu``: kThreads, kL)
+BWD_THREADS, BWD_CHUNK = 256, 16
 
 
 def check_scan_args(decay: torch.Tensor, inp: torch.Tensor, c: torch.Tensor,
@@ -76,3 +82,54 @@ def selective_scan_cuda(decay: torch.Tensor, inp: torch.Tensor,
             y.data_ptr(), h_last.data_ptr(), B, T, di, N,
             decay.get_device(), _build.stream_of(decay)), "selective_scan")
     return y, h_last
+
+
+def bwd_scratch(B: int, T: int, di: int, N: int):
+    """The backward's two scratch buffers, in floats: the state at the
+    start of every 16-step chunk (B, ceil(T / 16), di, N), and each channel
+    block's part of dc (B, blocks, T, N), ``256 // N`` channels a block."""
+    blocks = -(-di // (BWD_THREADS // N))
+    return B * -(-T // BWD_CHUNK) * di * N, B * blocks * T * N
+
+
+def selective_scan_bwd_cuda(decay: torch.Tensor, inp: torch.Tensor,
+                            c: torch.Tensor, h0: torch.Tensor,
+                            gy: torch.Tensor, gh: torch.Tensor):
+    """Gradients of :func:`selective_scan_cuda` at (decay, inp, c, h0) for
+    the output gradients ``gy`` (B, T, di) of y and ``gh`` (B, di, N) of
+    h_last, float32 and contiguous on the card -> (d_decay, d_inp, dc,
+    dh0) in the shapes of decay, inp, c and h0. dc sums over the channels
+    in a fixed order (no atomics): the same bits run to run. The scratch
+    (:func:`bwd_scratch`: 67 MB of checkpoints and 67 MB of partials at
+    Jamba's (2, 1,024, 8,192, 16)) is freed on return."""
+    check_scan_args(decay, inp, c, h0)
+    if not decay.is_cuda:
+        raise ValueError(f"decay must lie on a CUDA device, got "
+                         f"{decay.device}")
+    B, T, di, N = decay.shape
+    if N > MAX_STATE or B > 65535:
+        raise ValueError(f"the kernel takes N <= {MAX_STATE} states and "
+                         f"B <= 65,535, got N {N} and B {B}")
+    for name, t, shape in (("gy", gy, (B, T, di)), ("gh", gh, (B, di, N))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != decay.device:
+            raise ValueError(f"{name} lies on {t.device}, decay on "
+                             f"{decay.device}")
+    d_decay, d_inp = torch.empty_like(decay), torch.empty_like(inp)
+    dc, dh0 = torch.empty_like(c), torch.empty_like(h0)
+    if not di:
+        return d_decay, d_inp, dc.zero_(), dh0
+    ckpt, part = (decay.new_empty(n) for n in bwd_scratch(B, T, di, N))
+    _build.check(_build.library().rt_selective_scan_bwd(
+        decay.data_ptr(), inp.data_ptr(), c.data_ptr(), h0.data_ptr(),
+        gy.data_ptr(), gh.data_ptr(), d_decay.data_ptr(), d_inp.data_ptr(),
+        dc.data_ptr(), dh0.data_ptr(), ckpt.data_ptr(), part.data_ptr(), B,
+        T, di, N, decay.get_device(), _build.stream_of(decay)),
+        "selective_scan_bwd")
+    return d_decay, d_inp, dc, dh0

@@ -10,11 +10,19 @@ the CUDA device unless ``--device cpu`` is given:
         --arch deepseek-v3-671b --smoke --device cpu
 
 ``--smoke`` uses the reduced config. A config with the MTP head
-(deepseek-v3) trains on ``lm_loss`` with its MTP term. Weights are drawn by
-``models.transformer.init_lm`` on the run's device from ``--seed``; step
-``i``'s batch is ``make_tokens`` from a CPU generator seeded by ``(seed,
-i)``. With ``--ckpt-dir`` the state is saved every ``--ckpt-every`` steps
-(``checkpoint.save``, the reference's file layout) and the latest
+(deepseek-v3) trains on ``lm_loss`` with its MTP term; an encoder-decoder
+(``--arch whisper-base``) on ``lm_loss`` against ``encode_audio`` of step
+``i``'s frames. Weights are drawn by ``models.transformer.init_lm`` on the
+run's device from ``--seed``; step ``i``'s batch is ``make_tokens`` from a
+CPU generator seeded by ``(seed, i)`` (:func:`batch_at`), and an
+encoder-decoder's frames N(0, 1) from another CPU generator seeded the
+same way (:func:`frames_at`). The reference draws both from ``jax.random``
+keys folded from the seed (its frames ``jax.random.normal``), so the two
+packages' batches differ: the port does not reproduce that key stream,
+which at whisper-base's 8 x 1,500 x 512 frames would cost ~16 s a draw in
+numpy (``prng.normal``). With ``--ckpt-dir`` the state is saved every
+``--ckpt-every`` steps (``checkpoint.save``, the reference's file layout)
+and the latest
 checkpoint is restored at start; the run then goes on from its step (the
 reference restarts its loop at 0 with the restored state). The reference
 runs its step under a sharded ``jit`` over a host mesh; the port runs one
@@ -44,6 +52,16 @@ def batch_at(seed: int, step: int, batch: int, seq: int, vocab: int,
     return make_tokens(g, batch, seq, vocab).to(device)
 
 
+def frames_at(seed: int, step: int, batch: int, cfg, device
+              ) -> torch.Tensor:
+    """Step ``step``'s (batch, n_audio_frames, d_model) float32 frames of
+    an encoder-decoder, N(0, 1) drawn on the CPU from a generator seeded by
+    ``(seed, step)`` and moved to ``device``."""
+    g = torch.Generator().manual_seed((seed << 32) + step)
+    return torch.randn((batch, cfg.n_audio_frames, cfg.d_model),
+                       generator=g).to(device)
+
+
 def init_state(cfg, seed: int, device) -> S.TrainState:
     """Step 0: ``init_lm`` weights from ``seed`` on ``device``, zero
     moments (``device``: cuda unless "cpu")."""
@@ -67,8 +85,11 @@ def train(state: S.TrainState, cfg, tcfg: TrainConfig, *, steps: int,
     losses = []
     first, t0 = state.step, time.time()
     for i in range(state.step, steps):
-        tokens = batch_at(seed, i, batch, seq, cfg.vocab_size, dev)
-        state, loss = step_fn(state, {"tokens": tokens})
+        data = {"tokens": batch_at(seed, i, batch, seq, cfg.vocab_size,
+                                   dev)}
+        if cfg.is_encoder_decoder:
+            data["frames"] = frames_at(seed, i, batch, cfg, dev)
+        state, loss = step_fn(state, data)
         losses.append(loss)
         if i % log_every == 0 or i == steps - 1:
             done = float(loss)                  # waits for the step

@@ -8,6 +8,12 @@ A parameter tree is a tensor, an ``nn.Module`` (its parameters), or a
 list, tuple or dict of trees; its leaves are taken in order.
 :func:`adamw_update` updates the parameters and the moments IN PLACE
 (the reference returns new arrays) and returns them with the new state.
+It walks the leaves in groups of about :data:`GROUP_BYTES`, so that its
+temporaries (the clipped gradient, the denominator and the step) are a
+group's, not the whole tree's: at Jamba's first two layers (3.74 B
+parameters, 13.9 GiB a copy) three whole-tree copies would not fit one
+card beside the parameters, gradients and moments. Every operation is
+elementwise, so the grouping changes no bit.
 """
 from __future__ import annotations
 
@@ -15,6 +21,11 @@ from typing import List, NamedTuple
 
 import torch
 from torch import nn
+
+
+#: the bytes of leaves one pass of the update takes at a time (a larger
+#: leaf is a group of its own)
+GROUP_BYTES = 1 << 30
 
 
 class AdamWState(NamedTuple):
@@ -59,27 +70,52 @@ def adamw_update(params, grads, state: AdamWState, *, lr: float,
     updated in place. The bias corrections are float32, as the
     reference's ``1 - b ** count`` of a float32 count is."""
     flat_g = leaves(grads)
-    if grad_clip:
-        flat_g, _ = clip_by_global_norm(flat_g, grad_clip)
+    scale = None
+    if grad_clip:                        # clip_by_global_norm, by group
+        norm = global_norm(flat_g)
+        scale = torch.clamp(grad_clip / torch.clamp(norm, min=1e-9), max=1.0)
     count = state.count + 1
     cf = torch.tensor(float(count), dtype=torch.float32)
     bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** cf)
     bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** cf)
     flat_p = leaves(params)
-    flat_g = [g.float() for g in flat_g]
     mu, nu = state.mu, state.nu
-    # one multi-tensor launch per line instead of one per leaf
-    torch._foreach_mul_(mu, b1)
-    torch._foreach_add_(mu, flat_g, alpha=1 - b1)
-    torch._foreach_mul_(nu, b2)
-    torch._foreach_addcmul_(nu, flat_g, flat_g, value=1 - b2)
-    den = torch._foreach_div(nu, bc2)
-    torch._foreach_sqrt_(den)
-    torch._foreach_add_(den, eps)
-    step = torch._foreach_div(mu, bc1)
-    torch._foreach_div_(step, den)
-    if weight_decay:
-        torch._foreach_add_(step, [p.float() for p in flat_p],
-                            alpha=weight_decay)
-    torch._foreach_sub_(flat_p, torch._foreach_mul(step, lr))
+    for idx in _groups(flat_p):
+        p = [flat_p[i] for i in idx]
+        g = [flat_g[i].float() for i in idx]
+        if scale is not None:
+            g = [x * scale for x in g]
+        m, v = [mu[i] for i in idx], [nu[i] for i in idx]
+        # one multi-tensor launch per line instead of one per leaf
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, g, alpha=1 - b1)
+        torch._foreach_mul_(v, b2)
+        torch._foreach_addcmul_(v, g, g, value=1 - b2)
+        del g
+        den = torch._foreach_div(v, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, eps)
+        step = torch._foreach_div(m, bc1)
+        torch._foreach_div_(step, den)
+        del den
+        if weight_decay:
+            torch._foreach_add_(step, [x.float() for x in p],
+                                alpha=weight_decay)
+        torch._foreach_mul_(step, lr)
+        torch._foreach_sub_(p, step)
     return params, AdamWState(mu=mu, nu=nu, count=count)
+
+
+def _groups(tensors):
+    """Index lists of consecutive leaves of at most GROUP_BYTES each (a
+    larger leaf alone)."""
+    group, size = [], 0
+    for i, t in enumerate(tensors):
+        n = t.numel() * t.element_size()
+        if group and size + n > GROUP_BYTES:
+            yield group
+            group, size = [], 0
+        group.append(i)
+        size += n
+    if group:
+        yield group

@@ -3,9 +3,9 @@
 
 On the card ``ops.rmsnorm``, ``ops.flash_attention`` and
 ``ops.selective_scan`` run the CUDA kernel forward inside a
-``torch.autograd.Function``. The backward of the first two is a kernel too
-(``rmsnorm_bwd_cuda``, ``flash_attention_bwd_cuda``); the scan's
-recomputes the plain version. Here every kernel symbol a Function calls,
+``torch.autograd.Function``, and a backward kernel back
+(``rmsnorm_bwd_cuda``, ``flash_attention_bwd_cuda``,
+``selective_scan_bwd_cuda``). Here every kernel symbol a Function calls,
 forward and backward, is swapped for a stand-in that returns the plain
 result computed under ``torch.no_grad()``, with no ``grad_fn``, as the
 kernel's output has none; so every gradient below comes from the
@@ -13,7 +13,9 @@ Function's backward alone, and the stand-ins count the calls. The
 backward kernels' plain versions (``ref.rmsnorm_bwd_ref``,
 ``ref.flash_attention_bwd_ref``) are also held to ``jax.vjp`` directly, and
 the backward wrappers' refusals are reached without a card through a CPU
-tensor that reports ``cuda:0``. Inputs and output gradients are drawn with
+tensor that reports ``cuda:0``, as is the flash backward's acceptance of
+queries and keys of different lengths (its C entry a recording stand-in).
+Inputs and output gradients are drawn with
 numpy from a seed and handed to both packages.
 
 Tolerances: rmsnorm ``1e-5*(1 + |g|)`` per element; flash attention 2e-5
@@ -55,7 +57,8 @@ def stand_ins(monkeypatch):
     """Each kernel symbol the Functions call, forward and backward,
     replaced by its plain version under no_grad; the calls are counted."""
     calls = {"rmsnorm": 0, "flash_attention": 0, "selective_scan": 0,
-             "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
+             "rmsnorm_bwd": 0, "flash_attention_bwd": 0,
+             "selective_scan_bwd": 0}
 
     def plain(name, fn):
         def kernel(*args, **kw):
@@ -85,6 +88,8 @@ def stand_ins(monkeypatch):
             x, s, g, eps)))
     monkeypatch.setattr(ops, "flash_attention_bwd_cuda", plain(
         "flash_attention_bwd", ref.flash_attention_bwd_ref))
+    monkeypatch.setattr(ops, "selective_scan_bwd_cuda", plain(
+        "selective_scan_bwd", ref.selective_scan_bwd_ref))
     return calls
 
 
@@ -118,16 +123,36 @@ def test_rmsnorm_function_gradients_match_reference(stand_ins, shape):
 
 # -------------------------------------------------------- flash attention
 
+# (causal, window, Tq, Tk) at queries and keys of two lengths (whisper's
+# cross-attention is the non-causal case); every row sees a key
+FLASH_UNEQUAL = [(False, 0, 7, 30), (False, 0, 30, 7), (True, 0, 12, 25),
+                 (True, 0, 25, 12), (True, 5, 12, 25), (False, 6, 12, 9)]
+
+
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 7),
                                            (False, 0)])
 def test_flash_function_gradients_match_reference(stand_ins, causal, window):
     """GQA 2:1: the plain version reads KV head h // 2, so the gradient of
     each KV head is the sum over its two query heads, as ``jnp.repeat``
     of k and v gives it in the reference."""
-    rng = np.random.default_rng(int(causal) * 10 + window)
-    B, T, Hq, Hkv, D = 2, 19, 4, 2, 64
-    q, k, v = (_f32(rng, B, T, H, D) for H in (Hq, Hkv, Hkv))
-    g = _f32(rng, B, T, Hq, D)
+    _flash_function_case(stand_ins, causal, window, 19, 19,
+                         int(causal) * 10 + window)
+
+
+@pytest.mark.parametrize("causal,window,Tq,Tk", FLASH_UNEQUAL)
+def test_flash_function_gradients_at_unequal_lengths(stand_ins, causal,
+                                                     window, Tq, Tk):
+    """The same at Tq queries over Tk keys."""
+    _flash_function_case(stand_ins, causal, window, Tq, Tk,
+                         int(causal) * 10 + window + Tq + 2 * Tk)
+
+
+def _flash_function_case(stand_ins, causal, window, Tq, Tk, seed):
+    rng = np.random.default_rng(seed)
+    B, Hq, Hkv, D = 2, 4, 2, 64
+    q, k, v = (_f32(rng, B, L, H, D) for L, H in ((Tq, Hq), (Tk, Hkv),
+                                                  (Tk, Hkv)))
+    g = _f32(rng, B, Tq, Hq, D)
     tq, tk, tv = _leaves(q, k, v)
     out = ops._FlashAttention.apply(tq, tk, tv, causal, window)
     out.backward(torch.from_numpy(g))
@@ -186,6 +211,7 @@ def test_scan_function_gradients_match_reference(stand_ins, shape, through):
         loss = loss + (h * torch.from_numpy(gh)).sum()
     loss.backward()
     assert stand_ins["selective_scan"] == 1
+    assert stand_ins["selective_scan_bwd"] == 1
     _, vjp = jax.vjp(jref.selective_scan_ref,
                      *[jnp.asarray(a) for a in arrays])
     wants = vjp((jnp.asarray(gy), jnp.asarray(gh)))
@@ -239,15 +265,13 @@ def test_dispatcher_builds_no_graph_under_no_grad(stand_ins, monkeypatch,
     out = getattr(ops, name)(*args, **kw)
     outs = out if isinstance(out, tuple) else (out,)
     assert stand_ins[name] == 2
-    if name != "selective_scan":
-        assert stand_ins[name + "_bwd"] == 0
+    assert stand_ins[name + "_bwd"] == 0
     assert all(type(t.grad_fn).__name__ == FUNCTIONS[name] + "Backward"
                for t in outs)
     sum(t.sum() for t in outs).backward()
     assert all(a.grad is not None and bool(a.grad.abs().sum() > 0)
                for a in args)
-    if name != "selective_scan":        # its backward is a recompute
-        assert stand_ins[name + "_bwd"] == 1
+    assert stand_ins[name + "_bwd"] == 1
 
 
 # ------------------------------------------- the backward plain versions
@@ -272,10 +296,23 @@ def test_rmsnorm_bwd_ref_matches_reference_vjp(shape):
 def test_flash_bwd_ref_matches_reference_vjp(causal, window):
     """The backward's formula (P from lse, delta = <do, o>) on the plain
     forward's o and lse, GQA 2:1, against the reference's vjp."""
-    rng = np.random.default_rng(int(causal) * 10 + window + 1)
-    B, T, Hq, Hkv, D = 2, 19, 4, 2, 64
-    q, k, v = (_f32(rng, B, T, H, D) for H in (Hq, Hkv, Hkv))
-    g = _f32(rng, B, T, Hq, D)
+    _flash_bwd_ref_case(causal, window, 19, 19, int(causal) * 10 + window + 1)
+
+
+@pytest.mark.parametrize("causal,window,Tq,Tk", FLASH_UNEQUAL)
+def test_flash_bwd_ref_at_unequal_lengths_matches_reference_vjp(
+        causal, window, Tq, Tk):
+    """The same at Tq queries over Tk keys."""
+    _flash_bwd_ref_case(causal, window, Tq, Tk,
+                        int(causal) * 10 + window + Tq + 2 * Tk + 1)
+
+
+def _flash_bwd_ref_case(causal, window, Tq, Tk, seed):
+    rng = np.random.default_rng(seed)
+    B, Hq, Hkv, D = 2, 4, 2, 64
+    q, k, v = (_f32(rng, B, L, H, D) for L, H in ((Tq, Hq), (Tk, Hkv),
+                                                  (Tk, Hkv)))
+    g = _f32(rng, B, Tq, Hq, D)
     tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
     o = ref.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
     lse = ref.flash_attention_lse_ref(tq, tk, tv, causal=causal,
@@ -377,17 +414,21 @@ BWD_REFUSALS = [
         o=_card(1, 5, 2, 64))),
      ValueError, "o and do must have q's shape (1, 4, 2, 64), got "
      "(1, 5, 2, 64) and (1, 4, 2, 64)"),
-    ("flash_kv_length", lambda: flash_attention_bwd_cuda(**_flash_args(
-        k=_card(1, 5, 1, 64), v=_card(1, 5, 1, 64))),
-     ValueError, "k and v must be (B, T, Hkv, D) beside q (1, 4, 2, 64), "
-     "got (1, 5, 1, 64) and (1, 5, 1, 64)"),
+    ("flash_kv_batch", lambda: flash_attention_bwd_cuda(**_flash_args(
+        k=_card(2, 5, 1, 64), v=_card(2, 5, 1, 64))),
+     ValueError, "k and v must be (B, Tk, Hkv, D) beside q (1, 4, 2, 64), "
+     "got (2, 5, 1, 64) and (2, 5, 1, 64)"),
+    ("flash_kv_differ", lambda: flash_attention_bwd_cuda(**_flash_args(
+        k=_card(1, 5, 1, 64), v=_card(1, 6, 1, 64))),
+     ValueError, "k and v must be (B, Tk, Hkv, D) beside q (1, 4, 2, 64), "
+     "got (1, 5, 1, 64) and (1, 6, 1, 64)"),
     ("flash_groups", lambda: flash_attention_bwd_cuda(**_flash_args(
         q=_card(1, 4, 3, 64), o=_card(1, 4, 3, 64), do=_card(1, 4, 3, 64),
         k=_card(1, 4, 2, 64), v=_card(1, 4, 2, 64), lse=_card(1, 3, 4))),
      ValueError, "3 query heads do not share 2 KV heads"),
     ("flash_lse_shape", lambda: flash_attention_bwd_cuda(**_flash_args(
         lse=_card(1, 4, 2))),
-     ValueError, "lse must be (B, Hq, T) = (1, 2, 4), got (1, 4, 2)"),
+     ValueError, "lse must be (B, Hq, Tq) = (1, 2, 4), got (1, 4, 2)"),
     ("rms_cpu", lambda: rmsnorm_bwd_cuda(torch.zeros(3, 8), _card(8),
                                          _card(3, 8)),
      ValueError, "x must lie on a CUDA device, got cpu"),
@@ -417,3 +458,49 @@ def test_bwd_wrappers_refuse_with_their_messages(call, exc, message):
     with pytest.raises(exc) as err:
         call()
     assert str(err.value) == message
+
+
+class _Library:
+    """Records the flash backward C entry's arguments; reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def rt_flash_attention_bwd(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("B,Tq,Tk,causal", [
+    (1, 4, 5, True),          # the call flash_kv_length refused before
+    (2, 7, 100, False),       # cross-attention: few queries, many keys
+    (3, 130, 9, True),        # more queries than keys
+    (8, 1500, 1500, False)])  # whisper's encoder: two batch slices
+def test_flash_bwd_wrapper_takes_unequal_lengths(monkeypatch, B, Tq, Tk,
+                                                 causal):
+    """Queries and keys of different lengths pass the checks: the C entry
+    gets Tq and Tk apart, once a batch slice and query range of bwd_plan
+    (Tq, Tk), with the plan's scratch, and each launch is counted."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import bwd_plan
+    lib = _Library()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    Hq, Hkv, D = 8, (8 if Tq == Tk else 2), 64
+    args = _flash_args(q=_card(B, Tq, Hq, D), k=_card(B, Tk, Hkv, D),
+                       v=_card(B, Tk, Hkv, D), o=_card(B, Tq, Hq, D),
+                       lse=_card(B, Hq, Tq), do=_card(B, Tq, Hq, D))
+    before = _build.LAUNCHES["flash_attention_bwd"]
+    dq, dk, dv = flash_attention_bwd_cuda(**args, causal=causal)
+    assert (dq.shape, dk.shape, dv.shape) == (args["q"].shape,
+                                              args["k"].shape,
+                                              args["v"].shape)
+    bc, bounds, floats = bwd_plan(B, Tq, Tk, Hq, causal)
+    assert len(lib.calls) == -(-B // bc) * len(bounds)
+    assert _build.LAUNCHES["flash_attention_bwd"] == before + len(lib.calls)
+    for i, call in enumerate(lib.calls):
+        assert call[7] == floats
+        n = min(bc, B - i // len(bounds) * bc)
+        assert call[11:17] == (n, Tq, Tk, Hq, Hkv, D)
+        assert call[17] == int(causal) and call[18] == 0
+        assert call[20:22] == bounds[i % len(bounds)]

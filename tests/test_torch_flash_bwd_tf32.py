@@ -18,6 +18,9 @@ through ``mm``:
 * Past its scratch budget the kernels run over ranges of query rows in
   turn (``flash_attention.bwd_plan``): a key block's dK and dV are then
   summed as above within each range, and the ranges' sums added in order.
+* Queries and keys may differ in length (Tq over Tk, whisper's
+  cross-attention): the mask is the forward's at positions counted from 0
+  on both sides, and keys no query sees (causal, Tk > Tq) get zeros.
 
 What the model does not follow is the order of additions inside one tile's
 product: ``mm`` rounds each product to nearest in float32, where the mma's
@@ -45,7 +48,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.kernels.flash_attention import bwd_plan  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    _ds_blocks, bwd_plan)
 # the forward's CPU model of the TF32 split: a @ b in three passes, in one
 from test_torch_lm_kernels import mm_tf32x1, mm_tf32x3  # noqa: E402
 
@@ -63,9 +67,9 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def _seen(qpos, kpos, T, causal, window):
-    """(queries, keys) True where a query sees a key, both inside T."""
-    ok = (qpos[:, None] < T) & (kpos[None, :] < T)
+def _seen(qpos, kpos, Tq, Tk, causal, window):
+    """(queries, keys) True where a query sees a key, inside Tq and Tk."""
+    ok = (qpos[:, None] < Tq) & (kpos[None, :] < Tk)
     if causal:
         ok &= kpos[None, :] <= qpos[:, None]
     if window:
@@ -76,34 +80,34 @@ def _seen(qpos, kpos, T, causal, window):
 def tiled_attention_bwd(q, k, v, o, lse, do, mm, *, causal, window,
                         ranges=None):
     """(dq, dk, dv) of flash attention by the backward kernel's algorithm
-    (module docstring). q, o, do (B, T, Hq, D); k, v (B, T, Hkv, D); lse
-    (B, Hq, T); ``ranges`` the (first, end) query rows of each launch, in
-    order (default one launch over all T)."""
-    B, T, Hq, D = q.shape
-    Hkv = k.shape[2]
+    (module docstring). q, o, do (B, Tq, Hq, D); k, v (B, Tk, Hkv, D); lse
+    (B, Hq, Tq); ``ranges`` the (first, end) query rows of each launch, in
+    order (default one launch over all Tq)."""
+    B, Tq, Hq, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
     rep = Hq // Hkv
     scale = 1.0 / math.sqrt(D)
-    # (B, H, T, D) views, T padded with zero rows to whole blocks, as the
-    # kernel's zero-filled copies
-    Tp = -(-T // KEY_BLOCK) * KEY_BLOCK
+    # (B, H, T, D) views, both lengths padded with zero rows to the same
+    # whole blocks, as the kernel's zero-filled copies
+    Tp = -(-max(Tq, Tk) // KEY_BLOCK) * KEY_BLOCK
 
     def heads(t):
         t = t.permute(0, 2, 1, 3)
-        return torch.nn.functional.pad(t, (0, 0, 0, Tp - T))
+        return torch.nn.functional.pad(t, (0, 0, 0, Tp - t.shape[2]))
 
     qh, kh, vh, doh = heads(q), heads(k), heads(v), heads(do)
-    lse2 = torch.nn.functional.pad(lse * LOG2E, (0, Tp - T))
+    lse2 = torch.nn.functional.pad(lse * LOG2E, (0, Tp - Tq))
     delta = torch.nn.functional.pad(
-        (do * o).sum(-1).permute(0, 2, 1), (0, Tp - T))
+        (do * o).sum(-1).permute(0, 2, 1), (0, Tp - Tq))
     pos = torch.arange(Tp)
     dk = torch.zeros((B, Hkv, Tp, D))
     dv = torch.zeros((B, Hkv, Tp, D))
     ds_all = torch.zeros((B, Hq, Tp, Tp))         # the scratch: dS
-    for k0, r0, r1 in ((k0, r0, r1) for r0, r1 in ranges or [(0, T)]
-                       for k0 in range(0, T, KEY_BLOCK)):
+    for k0, r0, r1 in ((k0, r0, r1) for r0, r1 in ranges or [(0, Tq)]
+                       for k0 in range(0, Tk, KEY_BLOCK)):
         keys = slice(k0, k0 + KEY_BLOCK)
         q_begin = k0 if causal else 0
-        q_end = T if not window else min(T, k0 + KEY_BLOCK - 1 + window)
+        q_end = Tq if not window else min(Tq, k0 + KEY_BLOCK - 1 + window)
         first = q_begin // QUERY_TILE * QUERY_TILE
         tiles = [(h, t0) for h in range(rep)
                  for t0 in range(max(first, r0), min(q_end, r1),
@@ -116,7 +120,7 @@ def tiled_attention_bwd(q, k, v, o, lse, do, mm, *, causal, window,
             rows = slice(t0, t0 + QUERY_TILE)
             heads_at = torch.arange(Hkv) * rep + hg
             qt, dot = qh[:, heads_at, rows], doh[:, heads_at, rows]
-            seen = _seen(pos[rows], pos[keys], T, causal, window).T
+            seen = _seen(pos[rows], pos[keys], Tq, Tk, causal, window).T
             st = mm(kh[:, :, keys], qt.transpose(-1, -2))        # S^T
             p = torch.where(seen, torch.exp2(
                 st * (scale * LOG2E) - lse2[:, heads_at, None, rows]), 0.0)
@@ -133,15 +137,15 @@ def tiled_attention_bwd(q, k, v, o, lse, do, mm, *, causal, window,
             dk[:, :, keys] *= scale
     dq = torch.zeros((B, Hq, Tp, D))
     kq = kh[:, torch.arange(Hq) // rep]
-    for k0 in range(0, T, KEY_TILE):
+    for k0 in range(0, Tk, KEY_TILE):
         keys = slice(k0, k0 + KEY_TILE)
         dq += mm(ds_all[:, :, :, keys], kq[:, :, keys])
     dq = dq * scale
 
-    def back(t):
-        return t[:, :, :T].permute(0, 2, 1, 3)
+    def back(t, n):
+        return t[:, :, :n].permute(0, 2, 1, 3)
 
-    return back(dq), back(dk), back(dv)
+    return back(dq, Tq), back(dk, Tk), back(dv, Tk)
 
 
 def magnitudes(q, k, v, o, lse, do, causal, window):
@@ -149,11 +153,11 @@ def magnitudes(q, k, v, o, lse, do, causal, window):
     chip_smoke.py's flash_bwd_magnitudes): ``P^T |dO|`` for dv, and with
     ``M = P * (|dO| |V|^T + sum_d |dO||O|)``, ``M |K| scale`` for dq and
     ``M^T |Q| scale`` for dk, each KV head's summed over its query heads."""
-    B, T, H, D = q.shape
-    Hkv = k.shape[2]
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(D)
     s = torch.einsum("bqhd,bkhd->bhqk", q, ref._kv_heads(k, H)) * scale
-    mask = ref._mask(T, T, causal, window, q.device)
+    mask = ref._mask(Tq, Tk, causal, window, q.device)
     p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
     ado = do.abs()
     dl = (ado * o.abs()).sum(-1).transpose(1, 2)[..., None]
@@ -163,8 +167,8 @@ def magnitudes(q, k, v, o, lse, do, causal, window):
         * scale
     m_dk = torch.einsum("bhqk,bqhd->bkhd", m, q.abs()) * scale
     m_dv = torch.einsum("bhqk,bqhd->bkhd", p, ado)
-    return (m_dq, m_dk.reshape(B, T, Hkv, H // Hkv, D).sum(3),
-            m_dv.reshape(B, T, Hkv, H // Hkv, D).sum(3))
+    return (m_dq, m_dk.reshape(B, Tk, Hkv, H // Hkv, D).sum(3),
+            m_dv.reshape(B, Tk, Hkv, H // Hkv, D).sum(3))
 
 
 def over_tolerance(got, want, mag):
@@ -174,14 +178,14 @@ def over_tolerance(got, want, mag):
             for g, w, m in zip(got, want, mag)]
 
 
-def _case(seed, B, T, Hq, Hkv, D, causal, window):
-    """Numpy inputs, the port's plain forward's o and lse, and the model's
-    inputs as tensors."""
+def _case(seed, B, T, Hq, Hkv, D, causal, window, Tk=None):
+    """Numpy inputs (T queries over Tk keys, default T), the port's plain
+    forward's o and lse, and the model's inputs as tensors."""
     rng = np.random.default_rng(seed)
     q, do = (rng.standard_normal((B, T, Hq, D)).astype(np.float32)
              for _ in range(2))
-    k, v = (rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
-            for _ in range(2))
+    k, v = (rng.standard_normal((B, T if Tk is None else Tk, Hkv, D))
+            .astype(np.float32) for _ in range(2))
     tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
     o = ref.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
     lse = ref.flash_attention_lse_ref(tq, tk, tv, causal=causal,
@@ -257,7 +261,7 @@ def test_scratch_holds_delta_and_the_ds_blocks(B, T, Hq, causal, slices,
     launch's query rows): the whole batch at once where it fits the 302 MB
     budget, slices of the batch, then ranges of whole 128-row groups; past
     that one group's blocks, Hq * T / 2 KB when causal."""
-    bc, bounds, floats = bwd_plan(B, T, Hq, causal)
+    bc, bounds, floats = bwd_plan(B, T, T, Hq, causal)
     assert bc == slices
     assert (bounds == ranges if isinstance(ranges, list)
             else len(bounds) == ranges)
@@ -265,3 +269,121 @@ def test_scratch_holds_delta_and_the_ds_blocks(B, T, Hq, causal, slices,
     assert all(a[1] == b[0] and a[1] % 128 == 0
                for a, b in zip(bounds, bounds[1:]))
     assert round(floats * 4 / 1e6, 1) == mb
+
+
+# (B, Tq, Tk, Hq, Hkv, D, causal, window): queries and keys of two lengths,
+# every row seeing a key
+UNEQUAL = [
+    (1, 40, 130, 2, 1, 64, False, 0),    # cross-attention: Tq < Tk
+    (2, 130, 40, 4, 2, 128, False, 0),   # Tq > Tk, GQA 2:1
+    (1, 70, 150, 2, 2, 64, True, 0),     # causal, keys 70+ unseen: zeros
+    (1, 150, 70, 2, 1, 64, True, 0),     # causal, rows past Tk see all
+    (1, 100, 200, 2, 1, 128, True, 48),  # a window across tiles
+    (1, 60, 120, 3, 1, 64, False, 30)]   # a window, not causal, GQA 3:1
+
+
+def _vjp_of_reference(q, k, v, do, causal, window):
+    Hq, Hkv = q.shape[2], k.shape[2]
+
+    def f(a, b, c):
+        return jref.flash_attention_ref(
+            a, jnp.repeat(b, Hq // Hkv, axis=2),
+            jnp.repeat(c, Hq // Hkv, axis=2), causal=causal, window=window)
+
+    return jax.jit(lambda a, b, c, g: jax.vjp(f, a, b, c)[1](g))(q, k, v,
+                                                                 do)
+
+
+@pytest.mark.parametrize("B,Tq,Tk,Hq,Hkv,D,causal,window", UNEQUAL)
+def test_tf32x3_model_at_unequal_lengths(B, Tq, Tk, Hq, Hkv, D, causal,
+                                         window):
+    """The model at Tq != Tk within the rule of the plain backward and of
+    jax.vjp of the reference's attention; by two query ranges dq keeps
+    its bits and dk, dv the rule; one TF32 pass misses it."""
+    (q, k, v, do), args = _case(Tq + 3 * Tk + D + window, B, Tq, Hq, Hkv,
+                                D, causal, window, Tk=Tk)
+    got = tiled_attention_bwd(*args, mm_tf32x3, causal=causal, window=window)
+    mag = magnitudes(*args, causal, window)
+    plain = ref.flash_attention_bwd_ref(*args, causal=causal, window=window)
+    for name, want in (("plain", plain), ("jax.vjp", _vjp_of_reference(
+            q, k, v, do, causal, window))):
+        worst = over_tolerance(got, want, mag)
+        assert max(worst) <= 1, f"{name}: dq, dk, dv {worst}x the tolerance"
+    if causal and Tk > Tq:                   # keys no query sees
+        assert not got[1][:, Tq:].any() and not got[2][:, Tq:].any()
+    if Tq > 16:
+        two = tiled_attention_bwd(*args, mm_tf32x3, causal=causal,
+                                  window=window, ranges=[(0, 16), (16, Tq)])
+        assert torch.equal(got[0], two[0])
+        assert max(over_tolerance(two, plain, mag)) <= 1
+    one = tiled_attention_bwd(*args, mm_tf32x1, causal=causal, window=window)
+    assert max(over_tolerance(one, plain, mag)) > 1
+
+
+def _blocks_seen(qb0, qb1, Tk, causal):
+    """The dS blocks of query blocks [qb0, qb1) a query can see, counted
+    one by one (no window: the layout keeps every block a window hides)."""
+    nbk = -(-Tk // 16)
+    return sum(1 for qb in range(qb0, qb1) for kb in range(nbk)
+               if not (causal and kb > qb))
+
+
+@pytest.mark.parametrize("Tq,Tk", [(384, 1500), (1500, 1500), (333, 100),
+                                   (100, 333), (7, 1000), (1, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ds_blocks_count_the_blocks_a_query_sees(Tq, Tk, causal):
+    """_ds_blocks' closed form (the scratch's layout, causal rows past the
+    last key block holding every key block) against a count, over every
+    query-block range of a 128-row split."""
+    nq = -(-Tq // 16)
+    for qb0 in range(0, nq, 8):
+        for qb1 in (min(nq, qb0 + 8), nq):
+            assert _ds_blocks(qb0, qb1, -(-Tk // 16), causal) == \
+                _blocks_seen(qb0, qb1, Tk, causal), (qb0, qb1)
+
+
+@pytest.mark.parametrize("B,Tq,Tk,Hq,causal,slices,ranges,mb", [
+    (8, 384, 1500, 8, False, 8, [(0, 384)], 147.9),    # whisper's cross
+    (8, 1500, 1500, 8, False, 4, [(0, 1500)], 289.7),  # its encoder
+    (8, 384, 384, 8, True, 8, [(0, 384)], 19.8),       # its decoder
+    (1, 32768, 1024, 16, True, 1, 8, 296.2),           # causal, Tq >> Tk
+    (1, 1024, 32768, 16, False, 1, 8, 268.5)])         # one group a range
+def test_scratch_at_unequal_lengths(B, Tq, Tk, Hq, causal, slices, ranges,
+                                    mb):
+    """bwd_plan at Tq queries over Tk keys: the whole batch where it fits
+    the budget (whisper's cross-attention, 148 MB), slices of the batch
+    (its encoder: 4 of 8), then ranges of whole 128-row groups."""
+    bc, bounds, floats = bwd_plan(B, Tq, Tk, Hq, causal)
+    assert bc == slices
+    assert (bounds == ranges if isinstance(ranges, list)
+            else len(bounds) == ranges)
+    assert bounds[0][0] == 0 and bounds[-1][1] == Tq
+    assert all(a[1] == b[0] and a[1] % 128 == 0
+               for a, b in zip(bounds, bounds[1:]))
+    assert round(floats * 4 / 1e6, 1) == mb
+
+
+def test_a_row_that_sees_no_key_gets_no_gradient():
+    """A window past the last key (Tq > Tk + window) leaves query rows that
+    see no key. The flash kernels write such a row a constant 0, where the
+    plain forward averages v (ROADMAP Queue 3; no model path makes one), so
+    the backward's formula gives it no gradient: dq 0 on those rows, and
+    dk, dv those of the rows that see a key alone, in the plain backward
+    and in the model of the kernel."""
+    B, Tq, Tk, Hq, Hkv, D, w = 1, 40, 10, 2, 1, 64, 5
+    seen = Tk - 1 + w                     # rows [0, seen) see a key
+    _, args = _case(99, B, Tq, Hq, Hkv, D, False, w, Tk=Tk)
+    q, k, v, o, lse, do = args
+    part = (q[:, :seen], k, v, o[:, :seen], lse[:, :, :seen], do[:, :seen])
+    for label, fn in (
+            ("plain", lambda *a: ref.flash_attention_bwd_ref(
+                *a, causal=False, window=w)),
+            ("model", lambda *a: tiled_attention_bwd(
+                *a, mm_tf32x3, causal=False, window=w))):
+        dq, dk, dv = fn(*args)
+        want = fn(*part)
+        assert not dq[:, seen:].any(), label
+        assert torch.equal(dq[:, :seen], want[0]), label
+        worst = over_tolerance((dk, dv), want[1:], magnitudes(
+            *part, False, w)[1:])
+        assert max(worst) <= 1, (label, worst)

@@ -14,8 +14,8 @@ d 256, 4 heads of 64, LayerNorm, 64 frames).
   shapes and parameter count;
 * the launcher's frames equal ``jax.random.normal(PRNGKey(seed), ...)``
   bit for bit;
-* ``build_train_step`` refuses an encoder-decoder, ``check_supported``
-  still refuses MLA and MTP;
+* ``check_supported`` takes MLA and MTP (whisper's training:
+  ``tests/test_torch_whisper_train.py``);
 * the CPU model of the flash kernel's TF32 tiles at Tq != Tk against the
   reference's attention core, and (on a card only) the kernel itself.
 """
@@ -34,7 +34,7 @@ from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import smoke_config as jsmoke_config  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.nn import attention as jattn  # noqa: E402
-from repro_torch.configs import TrainConfig, get_config, smoke_config  # noqa: E402,E501
+from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.convert import (_stacks, _top_spec,  # noqa: E402
                                  init_numpy_lm_params, lm_params_from_numpy,
                                  lm_params_to_numpy)
@@ -278,11 +278,6 @@ def test_generate_and_launcher_frames(twins):
 
 
 # ------------------------------------------------------------- refusals
-
-def test_train_step_refuses_encoder_decoder():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.build_train_step(smoke_config(ARCH), TrainConfig())
-
 
 @pytest.mark.parametrize("arch,mtp", [("minicpm3_4b", True),
                                       ("qwen3_0_6b", True),

@@ -21,8 +21,9 @@ FP32 ``scaled_dot_product_attention`` are timed by CUDA events in turns
 time is read from ``torch.profiler``, split by kernel name. A library whose
 C entry takes a query-row range is called as this checkout's wrapper calls
 it, over ``bwd_plan``'s batch slices and ranges, so at the long row it
-launches its kernels over two ranges; an older one is given one scratch
-with room for every block. ``--cases`` also holds every library to the
+launches its kernels over two ranges (with Tk = Tq where its entry takes
+the two lengths apart); an older one is given one scratch with room for
+every block. ``--cases`` also holds every library to the
 plain version at all of ``chip_smoke.py``'s ``FLASH_CASES``. Prints the
 card's name and power limit, one JSON line a shape and a last line with
 ptxas' registers and spills; exits non-zero without a GPU or on a
@@ -50,6 +51,12 @@ PROFILE_REPS = 5
 # stream
 OLD_SIGNATURE = (*[ctypes.c_void_p] * 10, *[ctypes.c_int] * 7,
                  ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+# the C entry with a query-row range before it took Tq and Tk apart: q, k,
+# v, o, lse, do, scratch, scratch floats, dq, dk, dv, B, T, Hq, Hkv, D,
+# causal, window, scale, qbegin, qend, device, stream
+RANGED_SIGNATURE = (*[ctypes.c_void_p] * 7, ctypes.c_longlong,
+                    *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 7,
+                    ctypes.c_float, *[ctypes.c_int] * 3, ctypes.c_void_p)
 
 
 def parse(argv):
@@ -61,15 +68,18 @@ def parse(argv):
 
 def build_all(trees):
     """{label: (rt_flash_attention_bwd, [kernel, registers, spill bytes] of
-    each kernel, whether it takes a query-row range)}; one nvcc a library,
-    all at once."""
+    each kernel, its C entry's kind: "old" with no query-row range,
+    "ranged" with one, "unequal" with a range and Tq and Tk apart)}; one
+    nvcc a library, all at once."""
     from repro_torch.kernels import _build
     BUILD.mkdir(parents=True, exist_ok=True)
     procs, ranged = {}, {}
     for label, tree in trees.items():
         src = (tree / "src" / "repro_torch" / "kernels" / "csrc"
                / "flash_attention_bwd.cu")
-        ranged[label] = "long long scratch_floats" in src.read_text()
+        text = src.read_text()
+        ranged[label] = ("unequal" if "int Tk," in text else "ranged"
+                         if "long long scratch_floats" in text else "old")
         procs[label] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", str(src), "-o",
              str(BUILD / f"{label}.so")],
@@ -80,8 +90,10 @@ def build_all(trees):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {label}:\n{log}")
         fn = ctypes.CDLL(str(BUILD / f"{label}.so")).rt_flash_attention_bwd
-        fn.argtypes = list(_build._SIGNATURES["rt_flash_attention_bwd"]
-                           if ranged[label] else OLD_SIGNATURE)
+        fn.argtypes = list({
+            "unequal": _build._SIGNATURES["rt_flash_attention_bwd"],
+            "ranged": RANGED_SIGNATURE,
+            "old": OLD_SIGNATURE}[ranged[label]])
         fn.restype = ctypes.c_int             # as _build.library() binds it
         out[label] = (fn, chip_smoke.ptxas_usage(log), ranged[label])
     return out
@@ -91,13 +103,14 @@ def caller(lib, q, k, v, o, lse, do, causal=True, window=0):
     """A call of one library's C entry into fresh (dq, dk, dv)."""
     import torch
     from repro_torch.kernels.flash_attention import bwd_plan
-    fn, _, ranged = lib
+    fn, _, kind = lib
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
     stream = torch.cuda.current_stream().cuda_stream
     scale, dev = 1.0 / math.sqrt(D), q.get_device()
-    if ranged:
-        bc, bounds, floats = bwd_plan(B, T, Hq, causal)
+    lengths = (T, T) if kind == "unequal" else (T,)
+    if kind != "old":
+        bc, bounds, floats = bwd_plan(B, T, T, Hq, causal)
     else:        # delta, then dS in every 16 x 16 block
         n = -(-T // 16)
         bc, bounds = B, [(0, T)]
@@ -112,8 +125,8 @@ def caller(lib, q, k, v, o, lse, do, causal=True, window=0):
                   for t in (q, k, v, o, lse, do, *out)]
             for r0, r1 in bounds:
                 err = fn(*at[:6], scratch.data_ptr(), floats, *at[6:], m,
-                         T, Hq, Hkv, D, int(causal), window, scale, r0, r1,
-                         dev, stream) if ranged else \
+                         *lengths, Hq, Hkv, D, int(causal), window, scale,
+                         r0, r1, dev, stream) if kind != "old" else \
                     fn(*at[:6], scratch.data_ptr(), *at[6:], m, T, Hq, Hkv,
                        D, int(causal), window, scale, dev, stream)
                 if err:

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Run part of ``chip_smoke.py`` on one NVIDIA GPU: the card's line, the
-kernels' build, ``lm_kernels`` and the named full-width phases of its
-``WIDE_PHASES`` (each with its profile and flash row), then the ``grad``
-line. Every line is the one ``chip_smoke.py`` prints, from the same
-functions and under the same checks.
+kernels' build, ``lm_kernels`` and the named phases, then the ``grad``
+line. A phase is one of ``chip_smoke.py``'s ``WIDE_PHASES`` (with its
+profile and flash row) or one of its training phases, ``lm_whisper_train``
+(with the flash backward's rows at whisper-base's three shapes) and
+``lm_hybrid_train`` (with selective_scan_bwd's row). Every line is the one
+``chip_smoke.py`` prints, from the same functions and under the same
+checks.
 
     python3 tools/smoke_phases.py [PHASE ...]     # default: lm_deepseek
 
-A quicker run of one wide model than the whole script. Exits non-zero
-without a GPU, on an unknown phase or where a check fails.
+A quicker run of one model than the whole script. Exits non-zero without a
+GPU, on an unknown phase or where a check fails.
 """
 import sys
 import time
@@ -20,14 +23,32 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 import chip_smoke as C  # noqa: E402
 
 
+def whisper_train(dev):
+    out = C.phase_lm_whisper_train(dev)
+    C.emit({"phase": "lm_whisper_train_flash_bwd_rows",
+            **C.whisper_bwd_rows(dev, out["bwd_by_shape"])})
+
+
+def hybrid_train(dev):
+    out = C.phase_lm_hybrid_train(dev)
+    C.emit({"phase": "lm_hybrid_train_scan_bwd_row",
+            "row": C.scan_bwd_row(dev,
+                                  out["launches"]["selective_scan_bwd"])})
+
+
+TRAIN_PHASES = {"lm_whisper_train": whisper_train,
+                "lm_hybrid_train": hybrid_train}
+
+
 def main(argv) -> int:
     import torch
     phases = {p[0]: p for p in C.WIDE_PHASES}
     names = argv or ["lm_deepseek"]
-    unknown = [n for n in names if n not in phases]
+    unknown = [n for n in names if n not in phases and n not in TRAIN_PHASES]
     if unknown:
         print(f"smoke_phases: unknown phases {unknown}; WIDE_PHASES has "
-              f"{list(phases)}", file=sys.stderr)
+              f"{list(phases)}, the training phases {list(TRAIN_PHASES)}",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("smoke_phases: no CUDA device", file=sys.stderr)
@@ -37,7 +58,12 @@ def main(argv) -> int:
     C.phase_build()
     C.phase_lm_kernels(dev)
     for name in names:
-        C.run_wide(dev, *phases[name])
+        t = time.perf_counter()
+        if name in TRAIN_PHASES:
+            TRAIN_PHASES[name](dev)
+        else:
+            C.run_wide(dev, *phases[name])
+        C.emit({"phase_seconds": {name: time.perf_counter() - t}})
     C.emit({"phase": "grad", **C.GRAD})
     C.emit({"seconds": time.perf_counter() - t0})
     return 0
