@@ -35,6 +35,6 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):    # meta: shapes, no memory
         raise ValueError(f"the port runs on cuda or cpu, got {dev}")
     return dev

@@ -473,33 +473,143 @@ def _tensor(flat, key: str, shape, device) -> torch.Tensor:
     return torch.tensor(arr, device=device)
 
 
-def lm_params_from_numpy(flat: Dict[str, np.ndarray], cfg: ModelConfig, *,
-                         device=None) -> dict:
-    """Reference path-keyed LM arrays -> the port's parameters on
-    ``device`` (cuda unless ``device="cpu"``): ``embed``, ``final_norm``,
-    ``head`` (untied only) and ``segments``, a list of per-layer dicts for
-    each segment; an encoder-decoder's ``encoder`` (a list of per-layer
-    dicts) and ``enc_final_norm``; the MTP head's ``mtp``."""
-    check_supported(cfg)
-    device = resolve_device(device)
+def _lm_tree(cfg: ModelConfig, top_leaf, layer_leaf) -> dict:
+    """The port's LM tree, each top-level leaf ``top_leaf(key, shape)`` and
+    each layer's ``layer_leaf(key, stacked shape, j)`` (key the reference
+    path, j the layer in its stack)."""
     V, d = cfg.vocab_size, cfg.d_model
-    top = {"embed": _tensor(flat, "embed", (V, d), device)}
+    top = {"embed": top_leaf("embed", (V, d))}
     for key, (shape, _) in _top_spec(cfg).items():
-        top[key] = _tensor(flat, key, shape, device)
+        top[key] = top_leaf(key, shape)
     if not cfg.tie_embeddings:
-        top["head"] = _tensor(flat, "head", (d, V), device)
+        top["head"] = top_leaf("head", (d, V))
     params = _nest(top)
     params["segments"] = []
     for prefix, n, spec in _stacks(cfg):
-        stacked = {k: _tensor(flat, f"{prefix}/{k}", (n,) + shape, device)
-                   for k, (shape, _) in spec.items()}
-        layers = [_nest({k: t[j] for k, t in stacked.items()})
+        layers = [_nest({k: layer_leaf(f"{prefix}/{k}", (n,) + shape, j)
+                         for k, (shape, _) in spec.items()})
                   for j in range(n)]
         if prefix == "encoder":
             params["encoder"] = layers
         else:
             params["segments"].append(layers)
     return params
+
+
+def lm_params_shape(cfg: ModelConfig) -> dict:
+    """The port's LM tree of ``cfg`` as meta tensors: shapes, no
+    memory."""
+    check_supported(cfg)
+
+    def meta(shape):
+        return torch.empty(shape, device="meta")
+
+    return _lm_tree(cfg, lambda key, shape: meta(shape),
+                    lambda key, shape, j: meta(shape[1:]))
+
+
+def lm_params_from_numpy(flat: Dict[str, np.ndarray], cfg: ModelConfig, *,
+                         device=None, mesh=None, specs=None) -> dict:
+    """Reference path-keyed LM arrays -> the port's parameters on
+    ``device`` (cuda unless ``device="cpu"``): ``embed``, ``final_norm``,
+    ``head`` (untied only) and ``segments``, a list of per-layer dicts for
+    each segment; an encoder-decoder's ``encoder`` (a list of per-layer
+    dicts) and ``enc_final_norm``; the MTP head's ``mtp``.
+
+    With a device ``mesh`` the leaves are DTensors laid out by ``specs``
+    (the port's spec tree; default ``distributed.sharding.param_specs``
+    in mode "train"): each rank copies only its own shard of each array
+    (of each layer's slice of a stacked one), so with arrays memory-mapped
+    from disk (:func:`mmap_npz`) the whole tree is never on one device or
+    in one host's memory."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    if mesh is None:
+        stacked: dict = {}
+
+        def layer(key, shape, j):
+            if key not in stacked:
+                stacked[key] = _tensor(flat, key, shape, device)
+            return stacked[key][j]
+
+        return _lm_tree(cfg, lambda key, shape: _tensor(flat, key, shape,
+                                                        device), layer)
+    from repro_torch.distributed import sharding as shd
+    if specs is None:
+        specs = shd.param_specs(lm_params_shape(cfg), cfg, mesh)
+    spec_of = _flatten_specs(specs)
+
+    def shard(key, shape, arr, spec):
+        if tuple(arr.shape) != tuple(shape):
+            raise ValueError(f"{key}: shape {arr.shape} does not fit the "
+                             f"config's {tuple(shape)}")
+        local = np.ascontiguousarray(
+            arr[shd.local_shard(shape, spec, mesh)], dtype=np.float32)
+        return shd.from_shard(torch.tensor(local, device=device), shape,
+                              spec, mesh)
+
+    def top(key, shape):
+        return shard(key, shape, flat[key], spec_of[key])
+
+    def layer(key, shape, j):
+        arr = flat[key]
+        if tuple(arr.shape) != tuple(shape):
+            raise ValueError(f"{key}: shape {arr.shape} does not fit the "
+                             f"config's {tuple(shape)}")
+        return shard(key, shape[1:], arr[j], spec_of[(key, j)])
+
+    return _lm_tree(cfg, top, layer)
+
+
+def _flatten_specs(specs: dict) -> dict:
+    """A spec tree -> {reference key: spec} for top-level leaves and
+    {(reference key, layer): spec} for the stacks' layers."""
+    out = {}
+
+    def walk(node, prefix, j=None):
+        for k, v in node.items():
+            key = f"{prefix}{k}"
+            if isinstance(v, dict):
+                walk(v, key + "/", j)
+            else:
+                out[key if j is None else (key, j)] = v
+
+    walk({k: v for k, v in specs.items()
+          if k not in ("segments", "encoder")}, "")
+    for s, layers in enumerate(specs["segments"]):
+        for j, layer in enumerate(layers):
+            walk(layer, f"segments/{s}/", j)
+    for j, layer in enumerate(specs.get("encoder", ())):
+        walk(layer, "encoder/", j)
+    return out
+
+
+def mmap_npz(path: str) -> Dict[str, np.ndarray]:
+    """The arrays of an ``.npz`` written by ``np.savez`` (stored, not
+    compressed), each memory-mapped read-only where it lies in the file:
+    a rank that slices one copies only its slice from disk. A compressed
+    member is read whole."""
+    import zipfile
+    out = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        for info in zf.infolist():
+            name = info.filename[:-4] if info.filename.endswith(".npy") \
+                else info.filename
+            if info.compress_type != zipfile.ZIP_STORED:
+                with zf.open(info) as member:
+                    out[name] = np.lib.format.read_array(member)
+                continue
+            f.seek(info.header_offset + 26)      # the local header's lengths
+            n_name, n_extra = np.frombuffer(f.read(4), dtype="<u2")
+            start = info.header_offset + 30 + int(n_name) + int(n_extra)
+            f.seek(start)
+            version = np.lib.format.read_magic(f)
+            shape, fortran, dtype = np.lib.format._read_array_header(
+                f, version)
+            out[name] = np.memmap(path, dtype=dtype, mode="r",
+                                  offset=f.tell(), shape=shape,
+                                  order="F" if fortran else "C")
+    return out
 
 
 def lm_params_to_numpy(params: dict, cfg: ModelConfig

@@ -3,9 +3,9 @@
 Port of ``repro.core.ema`` on one device: the refresh from the
 sufficient statistics that the encode kernel emits, so the refresh never
 re-runs the encoder, the refresh from explicit codes, and the Step 5
-server merge's associative fixed-point statistics. The reference's
-``ema_update_distributed`` (a ``shard_map`` body with a ``psum``) comes
-with the port's process-group code.
+server merge's associative fixed-point statistics, and
+:func:`ema_update_distributed`, the refresh from statistics summed over a
+process group (the reference's ``shard_map`` body with a ``psum``).
 
     N_i <- gamma N_i + (1-gamma) n_i
     m_i <- gamma m_i + (1-gamma) sum_j z_{i,j}
@@ -70,6 +70,22 @@ def ema_update(state: EMAState, z_e: torch.Tensor, indices: torch.Tensor,
     n, s = assignment_stats(z_e, indices, state.codebook.shape[0])
     return ema_update_from_stats(state, n, s, gamma=gamma,
                                  laplace_eps=laplace_eps)
+
+
+def ema_update_distributed(state: EMAState, z_e: torch.Tensor,
+                           indices: torch.Tensor, gamma: float = 0.99, *,
+                           group=None) -> EMAState:
+    """One EMA step from the latents and codes of every rank of ``group``
+    (a ``torch.distributed`` process group; the default group if None):
+    each rank's ``assignment_stats``, then one ``all_reduce`` of the counts
+    and one of the sums, and the same refresh on every rank. The paper's
+    client-side weekly accumulation is the per-rank sums; the monthly
+    server sync is the all-reduce."""
+    import torch.distributed as dist
+    n, s = assignment_stats(z_e, indices, state.codebook.shape[0])
+    dist.all_reduce(n, group=group)
+    dist.all_reduce(s, group=group)
+    return ema_update_from_stats(state, n, s, gamma=gamma)
 
 
 def batch_optimal_atoms(z_e: torch.Tensor, indices: torch.Tensor,

@@ -1,1 +1,2 @@
-"""Serving steps of the LM (port of ``repro.distributed``, one device)."""
+"""The LM's steps and sharding rules (port of ``repro.distributed``): one
+device, or a (data, model) device mesh on DTensor."""

@@ -50,6 +50,11 @@
 //  * The online softmax stays in FP32 on the FMA pipes: the row max over a
 //    quad of lanes by two xor shuffles, expf, the running l kept per lane
 //    and summed over the quad at the end.
+//  * A row that sees no key (window > 0 and qpos >= Tk - 1 + window) is
+//    what the plain function gives it, the mean of v over the Tk keys (its
+//    softmax over Tk scores of -1e30 is uniform), and its lse is written
+//    +inf, which the backward reads as the mark of such a row. (The TPU
+//    kernel also averages its zero-padded keys there.)
 //  * A causal block stops at its diagonal tile and a window block starts at
 //    the first tile its first row can see; within a block a warp skips a
 //    tile that is masked for all 16 of its rows. The TPU kernel visits
@@ -312,6 +317,22 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();                     // the stage is read: refill it
   }
 
+  // Rows from `blind` on see no key (a window past the last key). The plain
+  // function's softmax over their Tk scores of -1e30 is uniform, so such a
+  // row is the mean of v over the Tk keys; its lse is +inf, the mark the
+  // backward reads (in float32 -1e30 + log Tk rounds back to -1e30).
+  const int blind = window > 0 && Tk - 1 + window < Tq ? Tk - 1 + window : Tq;
+  float* mean = Qs;                      // the query tile is read
+  if (q0 + BQ > blind) {                 // uniform in the block
+    __syncthreads();                     // no thread still writes Qs
+    for (int c = tid; c < D; c += kThreads) {
+      float acc = 0.f;
+      for (int key = 0; key < Tk; ++key) acc += vbase[key * kv_row + c];
+      mean[c] = acc / static_cast<float>(Tk);
+    }
+    __syncthreads();
+  }
+  const bool blind0 = r0 >= blind, blind1 = r1 >= blind;
   const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
@@ -319,20 +340,25 @@ __global__ void __launch_bounds__(kThreads, 2)
   // stored, so `out` is the same bits with or without it
   if (lse != nullptr && t == 0) {
     float* lrow = lse + static_cast<long long>(b * Hq + h) * Tq;
-    if (r0 < Tq) lrow[r0] = m[0] + logf(l0);
-    if (r1 < Tq) lrow[r1] = m[1] + logf(l1);
+    const float inf = __int_as_float(0x7f800000);
+    if (r0 < Tq) lrow[r0] = blind0 ? inf : m[0] + logf(l0);
+    if (r1 < Tq) lrow[r1] = blind1 ? inf : m[1] + logf(l1);
   }
   const long long row_stride = static_cast<long long>(Hq) * D;
   float* o0 = out + ((static_cast<long long>(b) * Tq + r0) * Hq + h) * D +
               2 * t;
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
+    const float2 mv = blind0 || blind1
+                          ? *reinterpret_cast<const float2*>(mean + 8 * n +
+                                                             2 * t)
+                          : make_float2(0.f, 0.f);
     if (r0 < Tq)
       *reinterpret_cast<float2*>(o0 + 8 * n) =
-          make_float2(o[n][0] * inv0, o[n][1] * inv0);
+          blind0 ? mv : make_float2(o[n][0] * inv0, o[n][1] * inv0);
     if (r1 < Tq)
       *reinterpret_cast<float2*>(o0 + 8 * row_stride + 8 * n) =
-          make_float2(o[n][2] * inv1, o[n][3] * inv1);
+          blind1 ? mv : make_float2(o[n][2] * inv1, o[n][3] * inv1);
   }
 }
 

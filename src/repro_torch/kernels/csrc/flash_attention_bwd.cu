@@ -15,10 +15,11 @@
 // Masking is the forward's at any Tq queries over Tk keys (flash_attention.
 // cu): a key is seen where kpos < Tk, kpos <= qpos (causal) and kpos > qpos
 // - window (window > 0), positions counted from 0 on both sides. A masked
-// entry's P is exactly 0, as the forward's exp(-1e30 - m) is; a row that
-// sees no key at all (a window past the last key) gets a zero gradient, as
-// the forward writes it a constant 0. Keys that no query sees (causal, Tk >
-// Tq) get dk = dv = 0.
+// entry's P is exactly 0, as the forward's exp(-1e30 - m) is. A row that
+// sees no key at all (a window past the last key; its lse is +inf) is the
+// mean of v in the plain function: its dO / Tk goes to every key's dV
+// (flash_bwd_blind), its dQ is 0 and it adds nothing to dK. Keys that no
+// query sees (causal, Tk > Tq) get dk = dv = 0 but for that term.
 //
 // Bound on the H100: tensor operations. At qwen3's training shape (8 x
 // 1,024 tokens, 16 query heads and 8 KV heads of 128, causal) the five
@@ -486,6 +487,28 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// dV of the rows from `blind` on, which see no key (a window past the last
+// key): the plain function's softmax gives such a row p = 1 / Tk on every
+// key, so each key's dV gains (1 / Tk) times the sum of those rows' dO over
+// the KV head's query heads; their dQ is 0 and they add nothing to dK (the
+// mask cuts the scores' gradient). One block a (b, KV head), a thread a
+// column; it runs after the last range's dkdv, on its dV.
+template <int D>
+__global__ void __launch_bounds__(D)
+    flash_bwd_blind(const float* __restrict__ dO, float* __restrict__ dv,
+                    int Tq, int Tk, int Hq, int Hkv, int blind) {
+  const int b = blockIdx.x / Hkv, hk = blockIdx.x - b * Hkv;
+  const int q_per_kv = Hq / Hkv, c = threadIdx.x;
+  float u = 0.f;
+  for (int r = blind; r < Tq; ++r)
+    for (int i = 0; i < q_per_kv; ++i)
+      u += dO[((static_cast<long long>(b) * Tq + r) * Hq + hk * q_per_kv +
+               i) * D + c];
+  u /= static_cast<float>(Tk);
+  for (int key = 0; key < Tk; ++key)
+    dv[((static_cast<long long>(b) * Tk + key) * Hkv + hk) * D + c] += u;
+}
+
 // the 64-key tiles a dkdv launch over the query rows [qbegin, qend) takes:
 // when causal, those a row of the range can see, and every tile of Tk in
 // the launch that ends at Tq, so that keys no query sees get their zeros
@@ -842,6 +865,12 @@ cudaError_t launch(const float* q, const float* k, const float* v,
       <<<static_cast<unsigned>(dq_blocks), 32 * kDqWarps, kDqBytes<D>, st>>>(
           k, dsb, dq, Tq, Tk, Hq, Hkv, causal, window, scale, qbegin,
           qend);
+  if (qend == Tq && window > 0 && Tk - 1 + window < Tq) {
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    flash_bwd_blind<D><<<static_cast<unsigned>(B * Hkv), D, 0, st>>>(
+        dO, dv, Tq, Tk, Hq, Hkv, Tk - 1 + window);
+  }
   return cudaGetLastError();
 }
 

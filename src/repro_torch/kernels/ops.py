@@ -24,10 +24,18 @@ flash forward saves its output and each row's log-sum-exp for its
 backward, so the (B, H, Tq, Tk) scores are never materialised; the scan's
 backward keeps a state every 16 steps and recomputes the rest, so the
 scan's states are never all held.
+
+On a device mesh (DTensor inputs, :mod:`repro_torch.distributed`) the three
+LM kernels are reached through ``local_map`` (:mod:`._mesh`): inputs are
+redistributed, where they must be, to placements under which each rank's
+shard is a problem of its own, and each rank calls the same entry point on
+its local tensors, so a launch is counted once on each rank.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.hints import is_dtensor
 
 from . import ref
 from ._build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
@@ -164,7 +172,11 @@ def encode_codes(z: torch.Tensor, codebooks: torch.Tensor, *, bits: int,
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
             eps: float = 1e-6) -> torch.Tensor:
     """(..., d) rows, (d,) scale -> ``x * rsqrt(mean(x^2) + eps) * scale``
-    (float32 on the card)."""
+    (float32 on the card). A DTensor goes through :mod:`._mesh`: each
+    rank normalises its own rows."""
+    if is_dtensor(x):
+        from ._mesh import rmsnorm_mesh
+        return rmsnorm_mesh(rmsnorm, x, scale, eps)
     if _on_card(x):
         # the kernel reads whole rows: float32 views are copied to
         # contiguous ones (other dtypes are refused, not copied first)
@@ -182,7 +194,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """(B, T, Hq, D) queries with GQA keys/values (B, T, Hkv, D) ->
     (B, T, Hq, D). The kernel reads KV head ``h // (Hq // Hkv)`` itself,
-    so nothing is repeated (the reference's ``ops`` repeats k and v)."""
+    so nothing is repeated (the reference's ``ops`` repeats k and v). A
+    DTensor goes through :mod:`._mesh`: each rank attends its own (batch,
+    head) shard."""
+    if is_dtensor(q):
+        from ._mesh import flash_attention_mesh
+        return flash_attention_mesh(flash_attention, q, k, v, causal=causal,
+                                    window=window)
     if _on_card(q):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if _builds_graph(q, k, v):
@@ -196,7 +214,12 @@ def selective_scan(decay: torch.Tensor, inp: torch.Tensor, c: torch.Tensor,
     """Mamba recurrence and output: decay, inp (B, T, di, N), c (B, T, N),
     h0 (B, di, N), float32 and contiguous -> (y (B, T, di), h_last
     (B, di, N)), ``h_t = decay_t * h_{t-1} + inp_t``, ``y_t = <h_t, c_t>``.
-    Anything else raises, on the card and on the CPU alike."""
+    Anything else raises, on the card and on the CPU alike. A DTensor
+    goes through :mod:`._mesh`: each rank scans its own (batch, channel)
+    shard."""
+    if is_dtensor(decay):
+        from ._mesh import selective_scan_mesh
+        return selective_scan_mesh(selective_scan, decay, inp, c, h0)
     if _on_card(decay):
         if _builds_graph(decay, inp, c, h0):
             return _SelectiveScan.apply(decay, inp, c, h0)

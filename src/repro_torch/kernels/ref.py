@@ -302,12 +302,24 @@ def _masked_scores(q, k, v, causal, window, scale=None):
         _kv_heads(v, H)
 
 
+def blind_rows(Tq: int, Tk: int, window: int) -> int:
+    """The first query row that sees no key (a window past the last key:
+    ``qpos >= Tk - 1 + window``), or Tq when every row sees one. The plain
+    function's softmax over such a row's Tk scores of -1e30 is uniform: the
+    row is the mean of v."""
+    return Tk - 1 + window if window and Tk - 1 + window < Tq else Tq
+
+
 def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
                             window: int = 0) -> torch.Tensor:
     """The (B, H, Tq) log-sum-exp of each query row's scaled, masked
-    scores, which the flash forward writes for its backward."""
-    return torch.logsumexp(_masked_scores(q, k, v, causal, window)[0], -1)
+    scores, which the flash forward writes for its backward; +inf on a row
+    that sees no key (:func:`blind_rows`), the mark the backward reads
+    (in float32 ``-1e30 + log Tk`` rounds back to -1e30)."""
+    lse = torch.logsumexp(_masked_scores(q, k, v, causal, window)[0], -1)
+    lse[..., blind_rows(q.shape[1], k.shape[1], window):] = math.inf
+    return lse
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
@@ -320,9 +332,10 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     - lse)`` on the seen keys (0 elsewhere), ``delta = <do, o>`` a row,
     ``dV = P^T dO``, ``dS = P*(dO V^T - delta)``, ``dQ = dS K*scale``,
     ``dK = dS^T Q*scale``, each KV head's gradient summed over its query
-    heads -> (dq, dk, dv). A row that sees no key (a window past the last
-    key) gets none: the flash kernel writes it a constant 0 (the plain
-    forward averages v there)."""
+    heads -> (dq, dk, dv). A row that sees no key (:func:`blind_rows`; its
+    lse +inf) is the mean of v: as ``jax.grad`` of the plain function
+    gives it, its dO / Tk goes to every key's dv, its dq is 0 and it adds
+    nothing to dk (the mask cuts the scores' gradient)."""
     B, Tq, H, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(D)
@@ -334,6 +347,9 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                     torch.zeros_like(s))
     delta = (dof * o.float()).sum(-1).transpose(1, 2)        # (B, H, T)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    blind = blind_rows(Tq, Tk, window)
+    if blind < Tq:
+        dv = dv + dof[:, blind:].sum(1)[:, None] / Tk
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta[..., None])
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale

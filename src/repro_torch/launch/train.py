@@ -24,9 +24,14 @@ numpy (``prng.normal``). With ``--ckpt-dir`` the state is saved every
 ``--ckpt-every`` steps (``checkpoint.save``, the reference's file layout)
 and the latest
 checkpoint is restored at start; the run then goes on from its step (the
-reference restarts its loop at 0 with the restored state). The reference
-runs its step under a sharded ``jit`` over a host mesh; the port runs one
-device with no mesh (ROADMAP Queue 1's distribution item).
+reference restarts its loop at 0 with the restored state). ``main`` takes
+the reference's route: a (data, model) mesh over the process group
+(:func:`repro_torch.launch.mesh.make_host_mesh`; one rank when started
+alone, N under ``torchrun --nproc-per-node N -m repro_torch.launch.train
+...``), the mesh train step (``distributed.steps.build_train_step(cfg,
+tcfg, mesh, shape)``) and a state sharded by its specs; checkpoints hold
+whole tensors (rank 0 writes them). :func:`train` runs one device unless
+given a ``mesh``.
 """
 from __future__ import annotations
 
@@ -34,12 +39,15 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import restore, save
 from repro_torch.configs import TrainConfig, get_config, smoke_config
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.data.synthetic import make_tokens
 from repro_torch.distributed import steps as S
+from repro_torch.launch.mesh import init_world, make_host_mesh
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import leaves
 
@@ -73,12 +81,19 @@ def init_state(cfg, seed: int, device) -> S.TrainState:
 
 def train(state: S.TrainState, cfg, tcfg: TrainConfig, *, steps: int,
           batch: int, seq: int, seed: int = 0, log_every: int = 10,
-          ckpt_dir: str = "", ckpt_every: int = 50, wrap=None):
+          ckpt_dir: str = "", ckpt_every: int = 50, wrap=None, mesh=None):
     """Run steps ``state.step`` to ``steps - 1`` -> (state, the losses as
     0-d tensors on the device). ``wrap``, if given, takes the train step
     (``build_train_step(cfg, tcfg)``) and returns the function to call in
-    its place (e.g. one that times it)."""
-    step_fn = S.build_train_step(cfg, tcfg)
+    its place (e.g. one that times it). With a ``mesh`` the state is
+    :func:`repro_torch.distributed.steps.shard_state`'s and the step the
+    mesh step; every rank draws the same batches."""
+    if mesh is None:
+        step_fn = S.build_train_step(cfg, tcfg)
+    else:
+        step_fn = S.build_train_step(cfg, tcfg, mesh,
+                                     ShapeConfig("cli", seq, batch,
+                                                 "train"))[0]
     if wrap is not None:
         step_fn = wrap(step_fn)
     dev = leaves(state.params)[0].device
@@ -97,7 +112,9 @@ def train(state: S.TrainState, cfg, tcfg: TrainConfig, *, steps: int,
             print(f"step {i:5d} loss {done:.4f} ({tok_s:,.0f} tok/s)",
                   flush=True)
         if ckpt_dir and (i + 1) % ckpt_every == 0:
-            save(ckpt_dir, i + 1, state, metadata={"arch": cfg.name})
+            whole = state if mesh is None else S.unshard_state(state)
+            if mesh is None or dist.get_rank() == 0:
+                save(ckpt_dir, i + 1, whole, metadata={"arch": cfg.name})
     return state, losses
 
 
@@ -117,26 +134,28 @@ def main(argv=None):
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    dev = init_world(args.device)
+    mesh = make_host_mesh(device=dev.type)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                        warmup_steps=max(1, args.steps // 10))
     print(f"arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
-          f"device={dev}")
+          f"device={dev} mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}")
     state = init_state(cfg, args.seed, dev)
     if args.ckpt_dir:
         restored, at = restore(args.ckpt_dir, state)
         if restored is not None:
             state = restored
             print(f"restored checkpoint at step {at}")
+    state = S.shard_state(state, cfg, mesh)
     t0 = time.time()
     state, losses = train(state, cfg, tcfg, steps=args.steps,
                           batch=args.batch, seq=args.seq, seed=args.seed,
                           log_every=args.log_every, ckpt_dir=args.ckpt_dir,
-                          ckpt_every=args.ckpt_every)
+                          ckpt_every=args.ckpt_every, mesh=mesh)
     final = f"{float(losses[-1]):.4f}" if losses else "n/a"
     print(f"done in {time.time() - t0:.1f}s; final loss {final}")
-    return state, [float(x) for x in losses]
+    return S.unshard_state(state), [float(x) for x in losses]
 
 
 if __name__ == "__main__":

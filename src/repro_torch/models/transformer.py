@@ -36,10 +36,13 @@ prefill and decode never run it. With
 ``remat`` each block runs under ``torch.utils.checkpoint``, as the
 reference wraps each scanned block body in ``jax.checkpoint``: its
 activations are recomputed in the backward, not kept (the MTP block is
-not, as in the reference). The reference's
-``hints.residual`` and ``hints.logits`` are identities off a mesh and are
-left out, and so is ``window_override`` (only the reference's dry run
-sets it): attention uses ``cfg.sliding_window``.
+not, as in the reference). ``hints.residual`` (after the embedding and
+each block) and ``hints.logits`` (the head) lay the activations out on a
+device mesh and are identities off one (:mod:`repro_torch.hints`); the
+embedding is ``F.embedding``, which DTensor shards by vocab, the same
+values as an index. The reference's ``window_override`` (its
+``long_500k`` variant) is the mesh step builders' (a config with that
+``sliding_window``); attention here uses ``cfg.sliding_window``.
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import hints, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn.attention import (attend, attention, cross_attention,
                                       init_attention, init_cache,
@@ -240,17 +243,26 @@ def _run_segments(params, cfg, x, positions, *, caches=None,
                                   positions, cos_sin, enc_out,
                                   use_reentrant=False,
                                   preserve_rng_state=False)
+                x = hints.residual(x)
                 aux = aux + a
                 continue
             lc = None if caches is None else _layer_cache(caches[si], j)
             x, nc, a = _apply_block(bp, cfg, mixer, ffn, x, positions,
                                     cache=lc, cache_index=cache_index,
                                     cos_sin=cos_sin, enc_out=enc_out)
+            x = hints.residual(x)
             aux = aux + a
             if lc is not None and mixer not in _OWN_SLOT:
                 for dst, src in zip(lc, nc):
-                    dst.copy_(src)
+                    dst.copy_(_like(src, dst))
     return x, aux
+
+
+def _like(src, dst):
+    """``src`` laid out as ``dst`` (a DTensor cache slice) for a copy."""
+    if hints.is_dtensor(dst) and src.placements != dst.placements:
+        return src.redistribute(dst.device_mesh, dst.placements)
+    return src
 
 
 def _remat_block(bp, cfg, mixer, ffn, x, positions, cos_sin, enc_out):
@@ -287,7 +299,7 @@ def encode_audio(params, cfg: ModelConfig, frames: torch.Tensor
 
 def _lm_head(params, cfg, hidden):
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    logits = hidden @ w
+    logits = hints.logits(hidden @ w)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
@@ -295,7 +307,8 @@ def _lm_head(params, cfg, hidden):
 
 
 def _embed(params, cfg, tokens):
-    return params["embed"][tokens].to(getattr(torch, cfg.dtype))
+    return hints.settle(hints.residual(F.embedding(tokens, params["embed"])
+                                       .to(getattr(torch, cfg.dtype))))
 
 
 def _forward_hidden(params, cfg, tokens, *, remat=False, enc_out=None):

@@ -28,8 +28,8 @@ cross-attention. Two compute paths, as in the reference:
 GQA never repeats k and v: the kernel reads KV head ``h // q_per_kv``,
 and :func:`_attend_full` groups the query heads by KV head.
 
-The reference's ``hints.heads`` / ``hints.kv_heads`` are identities off a
-mesh, so the port leaves them out. A decode step writes the new key and
+``hints.heads`` / ``hints.kv_heads`` lay q and k, v out on a device mesh
+(heads on 'model') and are identities off one. A decode step writes the new key and
 value into the cache in place (the reference's ``dynamic_update_slice``
 returns a new array); the returned cache is the same tensors.
 """
@@ -41,7 +41,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch import resolve_device
+from repro_torch import hints, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 
@@ -152,6 +152,11 @@ def attend(q, k, v, *, causal: bool = True, window: int = 0,
     columns to it where narrower, q first scaled by ``sqrt(D' / D)``, the
     output sliced back to Dv: the function of the scale ``1/sqrt(D)``."""
     if kv_len_mask is not None or q.shape[1] <= 1:
+        if hints.is_dtensor(q):         # each rank's (batch, head) shard
+            from repro_torch.kernels._mesh import heads_local
+            return heads_local(lambda a, b, c, m: _attend_full(
+                a, b, c, causal=causal, window=window, kv_len_mask=m),
+                q, k, v, kv_len_mask)
         return _attend_full(q, k, v, causal=causal, window=window,
                             kv_len_mask=kv_len_mask)
     dqk, dv = q.shape[-1], v.shape[-1]
@@ -185,9 +190,9 @@ def attention(params: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
     window = cfg.sliding_window
-    q = (x @ params["wq"]).reshape(B, T, cfg.n_heads, hd)
-    k = (x @ params["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
-    v = (x @ params["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+    q = hints.heads(hints.split_heads(x @ params["wq"], cfg.n_heads))
+    k = hints.kv_heads(hints.split_heads(x @ params["wk"], cfg.n_kv_heads))
+    v = hints.kv_heads(hints.split_heads(x @ params["wv"], cfg.n_kv_heads))
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
@@ -202,8 +207,8 @@ def attention(params: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     else:
         S = cache.k.shape[1]
         idx = int(cache_index)
-        cache.k[:, idx:idx + T] = k
-        cache.v[:, idx:idx + T] = v
+        hints.write_slot(cache.k, idx, k)
+        hints.write_slot(cache.v, idx, v)
         kpos = torch.arange(S, device=x.device)[None, :]
         valid = kpos <= idx
         if window:
@@ -249,8 +254,10 @@ def cross_attention(params: dict, cfg, x: torch.Tensor,
     B, T, _ = x.shape
     Ts = enc_out.shape[1]
     hd = cfg.resolved_head_dim
-    q = (x @ params["wq"]).reshape(B, T, cfg.n_heads, hd)
-    k = (enc_out @ params["wk"]).reshape(B, Ts, cfg.n_kv_heads, hd)
-    v = (enc_out @ params["wv"]).reshape(B, Ts, cfg.n_kv_heads, hd)
+    q = hints.heads(hints.split_heads(x @ params["wq"], cfg.n_heads))
+    k = hints.kv_heads(hints.split_heads(enc_out @ params["wk"],
+                                         cfg.n_kv_heads))
+    v = hints.kv_heads(hints.split_heads(enc_out @ params["wv"],
+                                         cfg.n_kv_heads))
     out = attend(q, k, v, causal=False)
     return out.reshape(B, T, cfg.n_heads * hd) @ params["wo"]

@@ -4,9 +4,9 @@ Mamba mixer's causal depthwise conv.
 Port of ``repro.nn.layers``. The LM layers are functions over parameter
 dicts with the reference's names (``scale``, ``bias``, ``wi``/``wg``/``wo``)
 and dense weights kept (in, out), used as ``x @ w``; ``rmsnorm`` runs the
-hand-written kernel through :func:`repro_torch.kernels.ops.rmsnorm`. The
-reference's ``hints.ffn_hidden`` is an identity off a mesh, so ``mlp``
-leaves it out. The public functions keep the reference's layouts —
+hand-written kernel through :func:`repro_torch.kernels.ops.rmsnorm`.
+``mlp`` lays its hidden layer out by ``hints.ffn_hidden`` (d_ff on
+'model' on a device mesh, an identity off one). The public functions keep the reference's layouts —
 NHWC / NTC activations — and take PyTorch's weight layouts (OIHW / OIH);
 they permute inside. The modules (:class:`Conv2d`, :class:`Conv1d`) work in
 PyTorch's own NCHW / NCT layout, so an encoder permutes once at entry and
@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import hints
 from repro_torch.kernels import ops
 
 
@@ -208,7 +209,7 @@ def init_mlp(d_model: int, d_ff: int, *,
 
 def mlp(params: dict, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
     h = act_fn(activation)(x @ params["wi"]) * (x @ params["wg"])
-    return h @ params["wo"]
+    return hints.ffn_hidden(h) @ params["wo"]
 
 
 # ------------------------------------------------------ causal depthwise
@@ -226,6 +227,10 @@ def causal_conv1d(params: dict, x: torch.Tensor) -> torch.Tensor:
     ``F.conv1d`` with groups C and the weight as (C, 1, K) computes it:
     both frameworks cross-correlate, so the taps are not flipped."""
     k = params["kernel"]
+    if hints.is_dtensor(x):             # each rank's (batch, channel) shard
+        from repro_torch.kernels._mesh import depthwise_mesh
+        return depthwise_mesh(lambda a, w: causal_conv1d({"kernel": w}, a),
+                              x, k)
     K, C = k.shape
     xt = F.pad(x.transpose(1, 2), (K - 1, 0))
     return F.conv1d(xt, k.T.unsqueeze(1), groups=C).transpose(1, 2) \

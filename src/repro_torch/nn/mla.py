@@ -46,7 +46,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import hints, resolve_device
 
 from .attention import NEG_INF, attend, rope_cos_sin, rotate
 from .layers import dense_init, init_rmsnorm, rmsnorm
@@ -100,7 +100,7 @@ def mla_attention(params: dict, cfg, x: torch.Tensor,
         q = rmsnorm(params["q_norm"], x @ params["wq_a"]) @ params["wq_b"]
     else:
         q = x @ params["wq"]
-    q = q.reshape(B, T, nq, dqk)
+    q = hints.heads(hints.split_heads(q, nq))
     cos_sin = rope_cos_sin(positions, dr, cfg.rope_theta)
     q_nope, q_rope = q[..., :dn], rotate(q[..., dn:], cos_sin)
     ckr = x @ params["wkv_a"]
@@ -108,7 +108,7 @@ def mla_attention(params: dict, cfg, x: torch.Tensor,
     k_rope = rotate(ckr[..., None, m.kv_lora_rank:], cos_sin)[:, :, 0]
 
     if cache is None:
-        kv = (c_kv @ params["wkv_b"]).reshape(B, T, nq, dn + dv)
+        kv = hints.split_heads(c_kv @ params["wkv_b"], nq)
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([kv[..., :dn],
                        k_rope[:, :, None, :].expand(B, T, nq, dr)], dim=-1)
@@ -117,8 +117,8 @@ def mla_attention(params: dict, cfg, x: torch.Tensor,
     else:
         S = cache.c_kv.shape[1]
         idx = int(cache_index)
-        cache.c_kv[:, idx:idx + T] = c_kv
-        cache.k_rope[:, idx:idx + T] = k_rope
+        hints.write_slot(cache.c_kv, idx, c_kv)
+        hints.write_slot(cache.k_rope, idx, k_rope)
         w_b = params["wkv_b"].reshape(m.kv_lora_rank, nq, dn + dv)
         w_kb, w_vb = w_b[..., :dn].float(), w_b[..., dn:].float()
         cc = cache.c_kv.float()

@@ -10,6 +10,10 @@ state as ``h0``.
 Decode carries a :class:`MambaCache` of the state and the last K - 1 conv
 inputs. ``jax.nn.softplus`` is ``logaddexp(x, 0)``; ``F.softplus`` returns
 x itself above 20, which differs from it by at most 2e-9 relative.
+
+On a device mesh the mixer's channels (d_inner) lie on the 'model' axis
+(``hints.ffn_hidden`` on x, z and dt; the reference leaves the layout to
+XLA), so the conv and the scan's kernel run on each rank's channels.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch import resolve_device
+from repro_torch import hints, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.nn.layers import (_draw_device, causal_conv1d, dense_init,
                                    init_causal_conv1d)
@@ -75,7 +79,10 @@ def scan_inputs(params: dict, cfg, x: torch.Tensor,
     di, K, N = s.expand * cfg.d_model, s.d_conv, s.d_state
     dtr = dt_rank(cfg)
 
-    xs, z = (x @ params["in_proj"]).split(di, dim=-1)     # (B, T, di) each
+    # on a device mesh the channels lie on 'model' (hints.ffn_hidden), so
+    # that the conv and the scan run on each rank's channels
+    xs, z = (hints.ffn_hidden(t)
+             for t in (x @ params["in_proj"]).split(di, dim=-1))
     if cache is None:
         xc = causal_conv1d(params["conv"], xs)
         conv_tail = xs[:, -(K - 1):] if T >= K - 1 else F.pad(
@@ -93,7 +100,8 @@ def scan_inputs(params: dict, cfg, x: torch.Tensor,
     proj = xc @ params["x_proj"]                          # (B, T, dtr+2N)
     dt_in, Bmat = proj[..., :dtr], proj[..., dtr:dtr + N]
     Cmat = proj[..., dtr + N:].float().contiguous()
-    dt = F.softplus(dt_in @ params["dt_proj"] + params["dt_bias"]).float()
+    dt = hints.ffn_hidden(F.softplus(dt_in @ params["dt_proj"]
+                                     + params["dt_bias"]).float())
     A = -torch.exp(params["A_log"])                       # (di, N)
 
     decay = (dt[..., None] * A).exp_()

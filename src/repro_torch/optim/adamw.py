@@ -14,6 +14,12 @@ group's, not the whole tree's: at Jamba's first two layers (3.74 B
 parameters, 13.9 GiB a copy) three whole-tree copies would not fit one
 card beside the parameters, gradients and moments. Every operation is
 elementwise, so the grouping changes no bit.
+
+On a device mesh the leaves are DTensors: a group holds leaves of one
+layout (the ``_foreach_`` ops take one at a time), a gradient is laid out
+as its parameter before the update, the moments keep their parameter's
+layout (``distributed.steps.state_specs``), and the global norm sums every
+shard's squares.
 """
 from __future__ import annotations
 
@@ -21,6 +27,8 @@ from typing import List, NamedTuple
 
 import torch
 from torch import nn
+
+from repro_torch.hints import is_dtensor
 
 
 #: the bytes of leaves one pass of the update takes at a time (a larger
@@ -51,8 +59,14 @@ def adamw_init(params) -> AdamWState:
                       count=0)
 
 
+def _square_sum(t: torch.Tensor) -> torch.Tensor:
+    """sum(t^2) over the whole tensor (every shard of a DTensor)."""
+    s = t.float().square().sum()
+    return s.full_tensor() if is_dtensor(s) else s
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(l.float().square().sum() for l in leaves(tree)))
+    return torch.sqrt(sum(_square_sum(l) for l in leaves(tree)))
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -69,7 +83,10 @@ def adamw_update(params, grads, state: AdamWState, *, lr: float,
     """One AdamW step -> (params, state); ``params`` and the moments are
     updated in place. The bias corrections are float32, as the
     reference's ``1 - b ** count`` of a float32 count is."""
-    flat_g = leaves(grads)
+    flat_p = leaves(params)
+    flat_g = [g.redistribute(p.device_mesh, p.placements)
+              if is_dtensor(g) and g.placements != p.placements else g
+              for p, g in zip(flat_p, leaves(grads))]
     scale = None
     if grad_clip:                        # clip_by_global_norm, by group
         norm = global_norm(flat_g)
@@ -78,7 +95,6 @@ def adamw_update(params, grads, state: AdamWState, *, lr: float,
     cf = torch.tensor(float(count), dtype=torch.float32)
     bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** cf)
     bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** cf)
-    flat_p = leaves(params)
     mu, nu = state.mu, state.nu
     for idx in _groups(flat_p):
         p = [flat_p[i] for i in idx]
@@ -106,16 +122,22 @@ def adamw_update(params, grads, state: AdamWState, *, lr: float,
     return params, AdamWState(mu=mu, nu=nu, count=count)
 
 
+def _layout(t):
+    """A DTensor's (mesh, placements); None for a plain tensor."""
+    return (t.device_mesh, t.placements) if is_dtensor(t) else None
+
+
 def _groups(tensors):
-    """Index lists of consecutive leaves of at most GROUP_BYTES each (a
-    larger leaf alone)."""
-    group, size = [], 0
+    """Index lists of consecutive leaves of one layout and at most
+    GROUP_BYTES each (a larger leaf alone)."""
+    group, size, layout = [], 0, None
     for i, t in enumerate(tensors):
         n = t.numel() * t.element_size()
-        if group and size + n > GROUP_BYTES:
+        if group and (size + n > GROUP_BYTES or _layout(t) != layout):
             yield group
             group, size = [], 0
         group.append(i)
         size += n
+        layout = _layout(t)
     if group:
         yield group

@@ -38,8 +38,14 @@ Typical use::
 
 ``round_indices`` is the async code server's entry: Steps 2-5 a client,
 returning the unpacked int32 codes so the server can split them into
-delivery groups. ``mesh=`` waits for the process-group port
-(``ROADMAP.md``).
+delivery groups.
+
+``mesh=`` (a ``DeviceMesh`` with a 'data' axis, as the reference's
+``shard_map`` over it): each data rank advances its contiguous shard of
+the clients (the cohort must divide by ``sharding.data_axis_size``), and
+the outputs are gathered over the data group, so ``round`` and
+``round_indices`` return what the engine returns without a mesh, on every
+rank. A client's round is the same bits wherever it runs.
 """
 from __future__ import annotations
 
@@ -167,17 +173,16 @@ def scatter_clients(batch: OC.ClientState, ids, sub: OC.ClientState
 class SimEngine:
     """One population round (Steps 2-5) over a stacked population.
 
-    ``mesh`` (the reference's ``shard_map`` over the mesh 'data' axis) is
-    not ported: a ``mesh`` raises.
+    mesh=None        — one device.
+    mesh=DeviceMesh  — the client axis sharded over the mesh's data axes:
+                       each data rank advances its slice of the
+                       population, the results gathered (n_clients must
+                       divide by the data-axis size).
     """
 
     def __init__(self, cfg: DVQAEConfig, *, lr: float = 1e-4,
                  gamma: float = 0.99, n_local_steps: int = 1, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SimEngine(mesh=...) shards clients over a device mesh, "
-                "which waits for the process-group port (ROADMAP.md, "
-                "Queue 1 item 7); run it without a mesh on one device")
+        self.mesh = mesh
         self.cfg = cfg
         self.lr = lr
         self.gamma = gamma
@@ -199,9 +204,23 @@ class SimEngine:
         ``data``: (C, B, ...), one local batch a client. Returns the new
         population state and the round's payload: one record stream a
         client (``n_records == C``) straight from ONE fused encode
-        dispatch, stamped with ``version``; ``labels`` (a per-task dict or
-        a bare (C, B) array) ride the payload into the server's store.
+        dispatch (one a data rank on a mesh), stamped with ``version``;
+        ``labels`` (a per-task dict or a bare (C, B) array) ride the
+        payload into the server's store.
         """
+        if self.mesh is None:
+            return self._round(clients, data, version=version,
+                               labels=labels)
+        sub, x, C = self._my_shard(clients, data)
+        sub, payload = self._round(sub, x, version=version)
+        words = self._gather(payload.payload)
+        clients = self._gather_state(clients, sub, C)
+        return clients, CodePayload.from_words(
+            words, bits=self.bits, shape=(C,) + tuple(payload.shape[1:]),
+            n_records=C, version=int(version), labels=labels,
+            n_samples=C * int(x.shape[1]), privatized=True)
+
+    def _round(self, clients, data, *, version: int = 0, labels=None):
         from repro_torch.kernels.ops import encode_codes
         cfg = self.cfg
         C = client_batch_size(clients)
@@ -259,6 +278,13 @@ class SimEngine:
         GSVQ search), the Eq. 7-8 statistics of those codes and the EMA
         refresh, each at one client's shapes.
         """
+        if self.mesh is None:
+            return self._round_indices(clients, data)
+        sub, x, C = self._my_shard(clients, data)
+        sub, codes = self._round_indices(sub, x)
+        return self._gather_state(clients, sub, C), self._gather(codes)
+
+    def _round_indices(self, clients, data):
         cfg = self.cfg
         C = client_batch_size(clients)
         cbs = clients.params["codebook"]
@@ -290,6 +316,62 @@ class SimEngine:
         return OC.ClientState(params=params, ema=ema,
                               step=torch.tensor(steps, dtype=torch.int64)), \
             torch.stack(codes)
+
+    # --------------------------------------------------------------- mesh
+
+    def _my_shard(self, clients, data):
+        """This data rank's contiguous slice of the clients and their
+        batches -> (sub-population, batches, C)."""
+        from repro_torch.distributed.sharding import (data_axis_size,
+                                                      data_group)
+        C = client_batch_size(clients)
+        n = data_axis_size(self.mesh)
+        if C % n:
+            raise ValueError(f"{C} clients do not split over {n} data "
+                             f"shards")
+        self._group, r = data_group(self.mesh)
+        per = C // n
+        ids = list(range(r * per, (r + 1) * per))
+        x = torch.as_tensor(data)[r * per:(r + 1) * per]
+        return select_clients(clients, ids), x, C
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of ``t`` beside every data rank's, in rank
+        order (the clients' order)."""
+        import torch.distributed as dist
+        if dist.get_world_size(self._group) == 1:
+            return t
+        t = t.contiguous()
+        parts = [torch.empty_like(t)
+                 for _ in range(dist.get_world_size(self._group))]
+        dist.all_gather(parts, t, group=self._group)
+        return torch.cat(parts)
+
+    def _gather_state(self, clients, sub, C: int) -> OC.ClientState:
+        """The whole population after a round from each data rank's
+        ``sub``: the stacked fields gathered, and each client's own
+        modules (when they train) sent from the rank that ran it."""
+        import torch.distributed as dist
+        ema = EMAState(*(self._gather(f) for f in sub.ema))
+        params = {"codebook": self._gather(sub.params["codebook"])}
+        n = dist.get_world_size(self._group)
+        for key in ("encoder", "decoder"):
+            m = sub.params[key]
+            if isinstance(m, torch.nn.Module) or n == 1:
+                params[key] = m
+                continue
+            per, r = C // n, dist.get_rank(self._group)
+            own = []
+            for i in range(C):
+                src = i // per
+                mod = m[i - r * per] if src == r else copy.deepcopy(m[0])
+                for t in list(mod.parameters()) + list(mod.buffers()):
+                    dist.broadcast(t.data, dist.get_global_rank(
+                        self._group, src), group=self._group)
+                own.append(mod)
+            params[key] = tuple(own)
+        step = self._gather(sub.step.to(ema.counts.device)).cpu()
+        return OC.ClientState(params=params, ema=ema, step=step)
 
     # ------------------------------------------------------- server side
 

@@ -250,9 +250,16 @@ def test_engine_labels_and_versions_ride_the_payload(twins):
 
 
 def test_unported_parts_raise(twins):
-    _, _, _, cfg = twins
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        SimEngine(cfg, mesh=object())
+    """The removed carriers raise; a sharded engine (``mesh=``, ported:
+    tests/test_torch_moe_ep.py) refuses a cohort its data axes do not
+    divide before it touches a process group."""
+    from repro_torch.launch.mesh import abstract_mesh
+    _, path, _, cfg = twins
+    eng = SimEngine(cfg, n_local_steps=0,
+                    mesh=abstract_mesh((2, 1), ("data", "model")))
+    server = port_server(path, cfg)
+    with pytest.raises(ValueError, match="do not split over 2 data"):
+        eng.round(eng.init_clients(server, 3), images(n_clients=3))
     import repro_torch.sim as sim
     import repro_torch.sim.engine as engine_mod
     for name in ("IngestBuffer", "PackedCodes"):

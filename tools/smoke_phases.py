@@ -4,7 +4,9 @@ kernels' build, ``lm_kernels`` and the named phases, then the ``grad``
 line. A phase is one of ``chip_smoke.py``'s ``WIDE_PHASES`` (with its
 profile and flash row) or one of its training phases, ``lm_whisper_train``
 (with the flash backward's rows at whisper-base's three shapes) and
-``lm_hybrid_train`` (with selective_scan_bwd's row). Every line is the one
+``lm_hybrid_train`` (with selective_scan_bwd's row), or ``lm_mesh`` (the
+mesh path, after the ``lm_serve`` phase whose weights it takes). Every
+line is the one
 ``chip_smoke.py`` prints, from the same functions and under the same
 checks.
 
@@ -36,8 +38,13 @@ def hybrid_train(dev):
                                   out["launches"]["selective_scan_bwd"])})
 
 
+def mesh(dev):
+    lm = C.phase_lm_serve(dev)
+    C.phase_lm_mesh(dev, lm)
+
+
 TRAIN_PHASES = {"lm_whisper_train": whisper_train,
-                "lm_hybrid_train": hybrid_train}
+                "lm_hybrid_train": hybrid_train, "lm_mesh": mesh}
 
 
 def main(argv) -> int:
