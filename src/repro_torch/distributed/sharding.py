@@ -328,13 +328,30 @@ def shard_tree(tree, specs, mesh):
     return _tree_map(one, tree, specs)
 
 
+def shard_extent(global_shape, placements, mesh):
+    """(local shape, global offset) of this rank's shard of a tensor of
+    ``global_shape`` laid out by ``placements``, as DTensor cuts it (each
+    Shard in mesh-dim order takes ``ceil(size / n)``-long chunks of what
+    the earlier ones left, the last ones shorter or empty), from the mesh
+    coordinate alone: plain integers, so that it also runs under a fake
+    mode."""
+    coord = mesh.get_coordinate()
+    shape, offset = list(global_shape), [0] * len(global_shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            d, size = p.dim, shape[p.dim]
+            chunk = -(-size // mesh.size(i))
+            start = min(chunk * coord[i], size)
+            shape[d] = max(0, min(size, start + chunk) - start)
+            offset[d] += start
+    return tuple(shape), tuple(offset)
+
+
 def local_shard(global_shape, spec, mesh) -> Tuple[slice, ...]:
     """The slices of a tensor of ``global_shape`` that this rank holds
     under ``spec`` (empty slices where it holds none)."""
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
-    shape, offset = compute_local_shape_and_global_offset(
-        tuple(global_shape), mesh, to_placements(spec, mesh))
+    shape, offset = shard_extent(tuple(global_shape),
+                                 to_placements(spec, mesh), mesh)
     return tuple(slice(o, o + n) for o, n in zip(offset, shape))
 
 

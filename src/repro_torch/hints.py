@@ -91,6 +91,49 @@ def split_heads(x, heads: int):
     return x.reshape(*x.shape[:-1], heads, x.shape[-1] // heads)
 
 
+def merge_heads(x):
+    """(..., heads, D) -> (..., heads * D), :func:`split_heads`' inverse.
+    A DTensor whose heads are sharded over ranks that do not divide them
+    evenly is first gathered on those mesh dims (a partial sum made whole);
+    the merged tensor's
+    gradient is laid out as the merged
+    tensor before the reshape takes it back (:func:`settle`): a gradient
+    sharded on the merged dim over ranks that the heads do not divide
+    among cannot be unflattened."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+        heads = x.ndim - 2
+        dims = [i for i, p in enumerate(x.placements) if p.is_shard(heads)]
+        size = 1
+        for i in dims:
+            size *= x.device_mesh.size(i)
+        if not (dims and x.shape[heads] % size):
+            dims = []
+        # a partial sum is made whole too: DTensor reshapes it by sharding
+        # the heads first
+        dims += [i for i, p in enumerate(x.placements) if p.is_partial()]
+        if dims:
+            x = x.redistribute(x.device_mesh, tuple(
+                Replicate() if i in dims else p
+                for i, p in enumerate(x.placements)))
+    return settle(x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1]))
+
+
+def pointwise(fn, x):
+    """``fn(x)``, an elementwise function that DTensor has no rule for
+    (``F.logsigmoid``), on each rank's shard; a partial sum is made whole
+    first. A plain tensor goes straight to ``fn``."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.kernels._mesh import relayout
+    mesh = x.device_mesh
+    pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    return local_map(fn, out_placements=(pl,), in_placements=(pl,),
+                     device_mesh=mesh)(relayout(x, mesh, pl))
+
+
 def settle(x):
     """``x`` as it is, its gradient laid out as ``x`` itself before it
     goes further back. Behind the vocab-sharded embedding gather (whose
@@ -114,15 +157,13 @@ def write_slot(cache, index: int, new) -> None:
         cache[:, index:index + T] = new
         return
     from torch.distributed.tensor import Replicate
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
+    from repro_torch.distributed.sharding import shard_extent
     from repro_torch.kernels._mesh import _as_dtensor, relayout
     mesh, pl = cache.device_mesh, cache.placements
     src = relayout(_as_dtensor(new, mesh), mesh, tuple(
         Replicate() if p.is_shard(1) else p for p in pl)).to_local()
     local = cache.to_local()
-    shape, offset = compute_local_shape_and_global_offset(
-        tuple(cache.shape), mesh, pl)
+    shape, offset = shard_extent(tuple(cache.shape), pl, mesh)
     lo, n = offset[1], shape[1]
     a, b = max(index, lo), min(index + T, lo + n)
     if a < b:

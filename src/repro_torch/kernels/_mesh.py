@@ -47,10 +47,19 @@ def _as_dtensor(t, mesh):
 def relayout(t, mesh, placements):
     """``t`` redistributed to ``placements``, or ``t`` itself if it has
     them already (a no-op redistribution still costs DTensor's
-    bookkeeping on every call)."""
+    bookkeeping on every call). A local shard that the redistribution
+    leaves strided (a gather of uneven shards narrows a padded buffer) is
+    made contiguous, so that a view of the result stays a view."""
     if tuple(t.placements) == tuple(placements):
         return t
-    return t.redistribute(mesh, placements)
+    t = t.redistribute(mesh, placements)
+    local = t.to_local()
+    if local.is_contiguous():
+        return t
+    DTensor = _dt()[0]
+    return DTensor.from_local(local.contiguous(), mesh, t.placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
 
 
 def _even(shape, placements, mesh) -> tuple:
@@ -196,6 +205,45 @@ def depthwise_mesh(conv, x, kernel):
     x = relayout(x, mesh, xp)
     kernel = relayout(_as_dtensor(kernel, mesh), mesh, kp)
     return _local_map(conv, (xp,), (xp, kp), (xp, kgrad), mesh)(x, kernel)
+
+
+def batch_local(fn, params, x, cache):
+    """``fn(params, x, cache) -> (out, new_cache)``, a recurrent mixer
+    (the xLSTM's), on each rank's batch shard: ``x`` (B, T, d) and the
+    cache's leaves (B, ...) keep x's batch sharding on the data axes and
+    are whole otherwise; the parameters are whole on every rank, their
+    gradients summed over the batch shards. The mixers' heads (4 at
+    xlstm-350m) do not divide a model axis, so nothing is sharded over it.
+    With no cache (a full sequence) the mixer's fresh cache is dropped:
+    the new cache is None."""
+    from torch.utils import _pytree as pytree
+    _, Partial, Replicate, Shard = _dt()
+    mesh = x.device_mesh
+    xp = _even(x.shape, tuple(Shard(0) if p.is_shard(0) else Replicate()
+                              for p in x.placements), mesh)
+    rep = (Replicate(),) * mesh.ndim
+    pgrad = tuple(Partial() if p.is_shard() else Replicate() for p in xp)
+    flat_p, p_spec = pytree.tree_flatten(params)
+    flat_c, c_spec = ([], None) if cache is None \
+        else pytree.tree_flatten(cache)
+    n_p = len(flat_p)
+
+    def local(*flat):
+        out, new_cache = fn(pytree.tree_unflatten(flat[:n_p], p_spec),
+                            flat[n_p], pytree.tree_unflatten(
+                                list(flat[n_p + 1:]), c_spec)
+                            if flat_c else None)
+        return (out, *(pytree.tree_flatten(new_cache)[0] if flat_c
+                       else ()))
+
+    args = ([relayout(_as_dtensor(t, mesh), mesh, rep) for t in flat_p]
+            + [relayout(x, mesh, xp)]
+            + [relayout(_as_dtensor(t, mesh), mesh, xp) for t in flat_c])
+    n = 1 + len(flat_c)
+    res = _local_map(local, (xp,) * n, (rep,) * n_p + (xp,) * n,
+                     (pgrad,) * n_p + (xp,) * n, mesh)(*args)
+    return res[0], (pytree.tree_unflatten(list(res[1:]), c_spec)
+                    if flat_c else None)
 
 
 def replicate_local(fn, args, mesh):

@@ -43,7 +43,14 @@
 //  * flash_bwd_dkdv: one block a (b, KV head, 64-key tile), two groups of
 //    4 warps; warp w of a group owns keys 16w to 16w + 15. The groups take
 //    turns over the (query head of the KV head's group, 16-row query tile)
-//    pairs that see the block's keys, in head-major order. Each warp
+//    pairs that see the block's keys, in head-major order. Past D = 128
+//    (192, 256: Dkdv's kWide) a lane's dK and dV of all D columns (D / 2
+//    floats each) do not fit its registers, nor four 64-key resident planes
+//    the shared memory: one block a 32-key tile, one group of 4 warps, warp
+//    w owning keys 16 (w % 2) to that + 15 and the column half w / 2 of
+//    their dK and dV. Both halves' warps compute the same S and dP over all
+//    D (7 products' work for 5) and only the first half's writes dS. Each
+//    warp
 //    computes S^T = K Q^T and dP^T = V dO^T side by side in key-row layout,
 //    so its P^T and dS^T accumulators are already the A fragments of
 //    dV += P^T dO and dK += dS^T Q: no score tile goes through shared
@@ -51,7 +58,7 @@
 //    order the dQ kernel's lanes take it. dK and dV (16 x D each) stay in
 //    registers in the mma C layout; at the end group 1's are added to group
 //    0's through shared memory. A fixed order and no atomics: two calls
-//    give the same bits.
+//    give the same bits, at every D.
 //  * flash_bwd_dq: dQ = dS K, one product: one block of 8 warps a (b, query
 //    head, 128-row tile), a warp 16 rows, walking the 32-key tiles its rows
 //    see; its dS fragments come from the scratch one tile ahead, by 16-byte
@@ -79,11 +86,13 @@
 //    window) and a warp skips a tile masked for all 16 of its rows; the
 //    blocks that see the most tiles are numbered first. A dkdv tile that no
 //    mask touches skips the mask arithmetic.
-//  * dkdv: one block (8 warps) an SM at either D: 224 KB of shared memory
-//    and 255 registers a thread at D = 128; 112.5 KB and 197 registers at
-//    D = 64, where two blocks would fit the shared memory but need 100k of
-//    the SM's 64k registers. dq: 48 KB, one block (8 warps) an SM by
-//    registers. Both are bound by shared-memory bytes a product reads as
+//  * dkdv: one block (8 warps) an SM at D 64, 96 and 128: 224 KB of shared
+//    memory and 255 registers a thread at D = 128; 112.5 KB and 197
+//    registers at D = 64, where two blocks would fit the shared memory but
+//    need 100k of the SM's 64k registers; 168.5 KB at D = 96. The wide
+//    layout: 168.25 KB at D = 192, 224.25 KB at D = 256, one block (4 warps)
+//    an SM. dq: 3 (32, D) tiles (48 KB at D = 128, 96 KB at 256), one block
+//    (8 warps) an SM by registers. Both are bound by shared-memory bytes a product reads as
 //    much as by the tensor pipe: a 16-row warp tile reads ~300 B of planes
 //    an mma, and the 227 KB budget leaves no room for wider.
 // Left: wgmma fed by TMA for all of it (ROADMAP Queue 2), and a warp tile
@@ -105,27 +114,35 @@ using tf32x3::cp_async_wait;
 using tf32x3::mma;
 using tf32x3::split;
 
-constexpr int kRes = 64;                 // dkdv's keys a block, 16 a warp
-constexpr int kGroups = 2;               // dkdv's warp groups, taking turns
 constexpr int kRows = 16;                // dkdv's query rows a streamed tile
 constexpr int kDqKeys = 32;              // dq's keys a streamed tile
 constexpr int kDqWarps = 8;              // dq's warps a block, 16 rows each
 
-// dkdv's shared memory: four resident (64, D) planes in A-fragment order
-// (hi and lo of K and V), then for each warp group its stream buffers: two
-// raw (kRows, D) tiles, raw and staged (lse, delta) of kRows rows, and the
-// four hi/lo (kRows, D) planes.
+// dkdv's layout at head dim D: KR resident keys a block, 16 a warp; CS
+// column parts of dK and dV, a warp accumulating DC columns; NG groups of 4
+// warps taking turns over the stream tiles. Its shared memory: four
+// resident (KR, D) planes in A-fragment order (hi and lo of K and V), then
+// for each warp group its stream buffers: two raw (kRows, D) tiles, raw
+// and staged (lse, delta) of kRows rows, and the four hi/lo (kRows, D)
+// planes.
 template <int D>
 struct Dkdv {
-  static constexpr int kThreads = 128 * kGroups;
-  static constexpr int kPlane = kRes * D;
+  static constexpr bool kWide = D > 128;
+  static constexpr int KR = kWide ? 32 : 64;
+  static constexpr int KW = KR / 16;     // key warps of a column part
+  static constexpr int CS = kWide ? 2 : 1;
+  static constexpr int NG = kWide ? 1 : 2;
+  static constexpr int DC = D / CS;
+  static constexpr int kThreads = 32 * KW * CS * NG;
+  static constexpr int kPlane = KR * D;
   static constexpr int kTile = kRows * D;
   static constexpr int kGroup = 6 * kTile + 4 * kRows;
-  static constexpr int kStage = kRes * (D + 4);  // a staged resident tile
-  static constexpr size_t bytes =
-      sizeof(float) * (4 * kPlane + kGroups * kGroup);
-  static_assert(2 * kStage <= kGroups * kGroup, "the staging fits");
-  static_assert(128 * D <= kGroups * kGroup, "group 1's dK and dV fit");
+  static constexpr int kStage = KR * (D + 4);    // a staged resident tile
+  static constexpr size_t bytes = sizeof(float) * (4 * kPlane + NG * kGroup);
+  static_assert(KW * CS == 4, "a group is 4 warps (group_sync's 128)");
+  static_assert(DC % 32 == 0, "a warp's columns are whole 32-column chunks");
+  static_assert(2 * kStage <= NG * kGroup, "the staging fits");
+  static_assert(NG == 1 || 128 * D <= NG * kGroup, "group 1's dK and dV fit");
 };
 
 // dq's shared memory: a raw (kDqKeys, D) K tile and its hi and lo planes
@@ -159,15 +176,15 @@ __device__ __forceinline__ void group_sync(int group) {
   asm volatile("bar.sync %0, 128;" ::"r"(group + 1) : "memory");
 }
 
-// start copying rows [row0, row0 + 64) of a (B, T, H, D) tensor at head h
-// into a (64, D + 4) staging tile; rows past T (the tensor's own length) as
+// start copying rows [row0, row0 + KR) of a (B, T, H, D) tensor at head h
+// into a (KR, D + 4) staging tile; rows past T (the tensor's own length) as
 // zeros
-template <int D, int NT>
+template <int D, int KR, int NT>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            int b, int row0, int T, int H,
                                            int h) {
   constexpr int C = D / 4;
-  for (int i = threadIdx.x; i < kRes * C; i += NT) {
+  for (int i = threadIdx.x; i < KR * C; i += NT) {
     const int r = i / C, c = i - r * C, row = row0 + r;
     const bool ok = row < T;
     const long long off =
@@ -176,16 +193,16 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
   }
 }
 
-// a staged (64, D + 4) tile -> hi and lo planes in A-fragment order: warp
+// a staged (KR, D + 4) tile -> hi and lo planes in A-fragment order: warp
 // w's fragment of 8-column step kk is one float4 a lane at
 // ((w * D / 8 + kk) * 32 + lane) * 4, holding rows 16w + g and 16w + g + 8
 // at columns 8kk + 2t and 8kk + 2t + 1 (lane = 4g + t): the contraction
 // index t of the mma taken as column 2t, t + 4 as 2t + 1
-template <int D, int NT>
+template <int D, int KR, int NT>
 __device__ __forceinline__ void to_fragments(const float* st, float* hi,
                                              float* lo) {
   constexpr int KK = D / 8;
-  for (int i = threadIdx.x; i < kRes * D / 4; i += NT) {
+  for (int i = threadIdx.x; i < KR * D / 4; i += NT) {
     const int w = i / (KK * 32), kk = (i / 32) % KK, ln = i % 32;
     const int r = 16 * w + (ln >> 2), c = 8 * kk + 2 * (ln & 3);
     const float x[4] = {st[r * (D + 4) + c], st[(r + 8) * (D + 4) + c],
@@ -296,23 +313,27 @@ __device__ __forceinline__ void rows_by_stream(
 // acc += A B over NK 8-row steps of a stream tile, three passes: A's hi
 // and lo fragments of step s as the mma takes them, whose k index t reads
 // the stream row at float offset off0[s] and t + 4 the one at off1[s] (the
-// offsets include this lane's 16-byte chunk g, permuted); B the planes.
-// Column n of output n-tile 4c + i is d = 32c + 4n + i, so one 16-byte load
-// gives four n-tiles' values. A tile's passes sum in a fresh accumulator,
+// offsets include this lane's 16-byte chunk g, permuted); B the planes'
+// DC columns from col0 (a multiple of 32). Column n of output n-tile 4c + i
+// is d = col0 + 32c + 4n + i, so one 16-byte load gives four n-tiles'
+// values. A tile's passes sum in a fresh accumulator,
 // which is then added to acc on the FP32 pipes: the mma's own additions
 // truncate, and over the thousands of rows that dK, dV and dQ sum, that
 // bias alone would take dV past the port's tolerance at the training
 // shape.
-template <int D, int NK>
+template <int DC, int NK>
 __device__ __forceinline__ void frags_by_dims(const uint32_t (&xh)[NK][4],
                                               const uint32_t (&xl)[NK][4],
                                               const float* Bh,
                                               const float* Bl,
                                               const int (&off0)[NK],
                                               const int (&off1)[NK],
-                                              float (&acc)[D / 8][4]) {
+                                              int col0,
+                                              float (&acc)[DC / 8][4]) {
+  Bh += col0;
+  Bl += col0;
 #pragma unroll
-  for (int c = 0; c < D / 32; ++c) {
+  for (int c = 0; c < DC / 32; ++c) {
     float part[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -344,12 +365,13 @@ __device__ __forceinline__ void frags_by_dims(const uint32_t (&xh)[NK][4],
 
 // acc += X B over the SR stream rows: X (16 x SR) in the C layout
 // rows_by_stream leaves (lane columns 2t and 2t + 1 of n-tile j are stream
-// rows 8j + t and 8j + t + 4), split here into A fragments
-template <int D, int NJ>
+// rows 8j + t and 8j + t + 4), split here into A fragments; B's DC columns
+// from col0
+template <int D, int DC, int NJ>
 __device__ __forceinline__ void rows_by_dims(const float (&x)[NJ][4],
                                              const float* Bh,
-                                             const float* Bl,
-                                             float (&acc)[D / 8][4]) {
+                                             const float* Bl, int col0,
+                                             float (&acc)[DC / 8][4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   uint32_t xh[NJ][4], xl[NJ][4];
   int off0[NJ], off1[NJ];
@@ -362,7 +384,7 @@ __device__ __forceinline__ void rows_by_dims(const float (&x)[NJ][4],
     off0[j] = (8 * j + t) * D + ((g ^ swz(t)) << 2);
     off1[j] = (8 * j + t + 4) * D + ((g ^ swz(t + 4)) << 2);
   }
-  frags_by_dims<D, NJ>(xh, xl, Bh, Bl, off0, off1, acc);
+  frags_by_dims<DC, NJ>(xh, xl, Bh, Bl, off0, off1, col0, acc);
 }
 
 // The dS scratch: 16 x 16 blocks (query block qb, key block kb) of each
@@ -459,8 +481,9 @@ __device__ __forceinline__ void add_acc(const float* buf,
       acc[n][e] += buf[(n * 4 + e) * 128 + (threadIdx.x & 127)];
 }
 
-// delta[(b, h, t)] = <do, o> of the (b, t, h) row: one warp a row, T the
-// query length
+// delta[(b, h, t)] = <do, o> of the (b, t, h) row: one warp a row, a
+// 4-column chunk a lane (and past D = 128 the lane's chunks summed in
+// order), T the query length
 template <int D>
 __global__ void __launch_bounds__(256)
     flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dO,
@@ -470,13 +493,15 @@ __global__ void __launch_bounds__(256)
       static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int lane = threadIdx.x & 31;
+  const auto chunk = [&](int c) {
+    const float4 a = *reinterpret_cast<const float4*>(o + row * D + 4 * c);
+    const float4 g = *reinterpret_cast<const float4*>(dO + row * D + 4 * c);
+    return fmaf(a.w, g.w, fmaf(a.z, g.z, fmaf(a.y, g.y, a.x * g.x)));
+  };
   float acc = 0.f;
-  if (lane < D / 4) {
-    const float4 a = *reinterpret_cast<const float4*>(o + row * D + 4 * lane);
-    const float4 g =
-        *reinterpret_cast<const float4*>(dO + row * D + 4 * lane);
-    acc = fmaf(a.w, g.w, fmaf(a.z, g.z, fmaf(a.y, g.y, a.x * g.x)));
-  }
+  if (lane < D / 4) acc = chunk(lane);
+#pragma unroll
+  for (int c = lane + 32; c < D / 4; c += 32) acc += chunk(c);
 #pragma unroll
   for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
   if (lane == 0) {
@@ -509,19 +534,19 @@ __global__ void __launch_bounds__(D)
     dv[((static_cast<long long>(b) * Tk + key) * Hkv + hk) * D + c] += u;
 }
 
-// the 64-key tiles a dkdv launch over the query rows [qbegin, qend) takes:
+// the kr-key tiles a dkdv launch over the query rows [qbegin, qend) takes:
 // when causal, those a row of the range can see, and every tile of Tk in
 // the launch that ends at Tq, so that keys no query sees get their zeros
 __host__ __device__ inline int dkdv_tiles(int Tq, int Tk, int causal,
-                                          int qend) {
+                                          int qend, int kr) {
   const int keys = causal && qend < Tq ? (qend < Tk ? qend : Tk) : Tk;
-  return (keys + kRes - 1) / kRes;
+  return (keys + kr - 1) / kr;
 }
 
 // R: the launch is one of several over ranges of query rows; without it
 // the range is all Tq and the range arithmetic folds away
 template <int D, bool R>
-__global__ void __launch_bounds__(128 * kGroups, 1)
+__global__ void __launch_bounds__(Dkdv<D>::kThreads, 1)
     flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ dO,
                    const float* __restrict__ lse,
@@ -530,7 +555,7 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
                    int Tk, int Hq, int Hkv, int causal, int window,
                    float scale, int qbegin, int qend) {
   using L = Dkdv<D>;
-  constexpr int NG = kGroups, SR = kRows, NJ = SR / 8;
+  constexpr int NG = L::NG, SR = kRows, NJ = SR / 8, KR = L::KR, DC = L::DC;
   extern __shared__ __align__(16) float smem[];
   float* Kh = smem;
   float* Kl = Kh + L::kPlane;
@@ -539,21 +564,23 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
   float* groups = Vl + L::kPlane;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int group = warp / 4, wq = warp % 4, gtid = threadIdx.x & 127;
+  const int group = warp / 4, wq = warp % L::KW, gtid = threadIdx.x & 127;
+  // this warp's columns of dK and dV
+  const int col0 = L::CS == 1 ? 0 : (warp % 4) / L::KW * DC;
   const int g = lane >> 2, t = lane & 3;
   if (!R) qbegin = 0, qend = Tq;
-  const int n_kt = dkdv_tiles(Tq, Tk, causal, qend);
+  const int n_kt = dkdv_tiles(Tq, Tk, causal, qend, KR);
   const int n_bh = gridDim.x / n_kt;
   const int kt = blockIdx.x / n_bh;      // first tiles see the most rows
   const int bh = blockIdx.x - kt * n_bh;
   const int b = bh / Hkv, hk = bh - b * Hkv, q_per_kv = Hq / Hkv;
-  const int k0 = kt * kRes, kw = k0 + 16 * wq;
+  const int k0 = kt * KR, kw = k0 + 16 * wq;
   const int n_qt = (Tq + SR - 1) / SR;
   // the query tiles that see these keys, then those of this launch (none
   // for keys past the last query when causal: their zeros are stored)
   const int seen_begin = causal ? k0 / SR : 0;
   int seen_end = n_qt - 1;               // inclusive
-  if (window > 0) seen_end = min(seen_end, (k0 + kRes - 2 + window) / SR);
+  if (window > 0) seen_end = min(seen_end, (k0 + KR - 2 + window) / SR);
   const int c0 = qbegin / SR, c1 = (qend + SR - 1) / SR;
   const bool first = !R || seen_begin >= c0, last = !R || seen_end < c1;
   const int qt_begin = R ? max(seen_begin, c0) : seen_begin;
@@ -565,13 +592,13 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
   const long long ds_base = ds_block(qb0, 0, nb, causal);
 
   // K and V staged raw, then split once into fragment planes
-  stage_rows<D, L::kThreads>(groups, k, b, k0, Tk, Hkv, hk);
-  stage_rows<D, L::kThreads>(groups + L::kStage, v, b, k0, Tk, Hkv, hk);
+  stage_rows<D, KR, L::kThreads>(groups, k, b, k0, Tk, Hkv, hk);
+  stage_rows<D, KR, L::kThreads>(groups + L::kStage, v, b, k0, Tk, Hkv, hk);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  to_fragments<D, L::kThreads>(groups, Kh, Kl);
-  to_fragments<D, L::kThreads>(groups + L::kStage, Vh, Vl);
+  to_fragments<D, KR, L::kThreads>(groups, Kh, Kl);
+  to_fragments<D, KR, L::kThreads>(groups + L::kStage, Vh, Vl);
   __syncthreads();
 
   float* raw = groups + group * L::kGroup;  // raw Q, then raw dO
@@ -597,9 +624,9 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
     }
   };
 
-  float ak[D / 8][4], av[D / 8][4];
+  float ak[DC / 8][4], av[DC / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) ak[n][e] = av[n][e] = 0.f;
 
@@ -649,8 +676,9 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         ds[j][e] = p[j][e] * (ds[j][e] - stat[SR + 8 * j + t + 4 * (e & 1)]);
-    // dS to the scratch: n-tile j is half of block (q0 / 16 + j / 2, kw / 16)
-    {
+    // dS to the scratch: n-tile j is half of block (q0 / 16 + j / 2, kw /
+    // 16); the first column part's warps write it
+    if (col0 == 0) {
       const int h = hk * q_per_kv + it / per_head, kb = kw >> 4;
       float* bh_ds = dsb + (static_cast<long long>(b) * Hq + h) *
                                ds_rows(qb0, (qend + 15) >> 4, nb, causal) *
@@ -665,31 +693,33 @@ __global__ void __launch_bounds__(128 * kGroups, 1)
               make_float4(ds[j][0], ds[j][1], ds[j][2], ds[j][3]);
       }
     }
-    rows_by_dims<D, NJ>(p, Oh, Ol, av);    // dV += P^T dO
-    rows_by_dims<D, NJ>(ds, Qh, Ql, ak);   // dK += dS^T Q
+    rows_by_dims<D, DC, NJ>(p, Oh, Ol, col0, av);    // dV += P^T dO
+    rows_by_dims<D, DC, NJ>(ds, Qh, Ql, col0, ak);   // dK += dS^T Q
   }
-  __syncthreads();                       // every group's last tile is read
-  if (group == 1) {
-    put_acc<D>(groups, ak);
-    put_acc<D>(groups + 64 * D, av);
+  if constexpr (NG == 2) {
+    __syncthreads();                     // every group's last tile is read
+    if (group == 1) {
+      put_acc<D>(groups, ak);
+      put_acc<D>(groups + 64 * D, av);
+    }
+    __syncthreads();
+    if (group == 1) return;
+    add_acc<D>(groups, ak);
+    add_acc<D>(groups + 64 * D, av);
   }
-  __syncthreads();
-  if (group == 1) return;
-  add_acc<D>(groups, ak);
-  add_acc<D>(groups + 64 * D, av);
   // an earlier launch's sums (unscaled) are added; scaled by the last
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int key = kw + g + 8 * hr;
     if (key < Tk) {
       const long long off =
-          ((static_cast<long long>(b) * Tk + key) * Hkv + hk) * D;
+          ((static_cast<long long>(b) * Tk + key) * Hkv + hk) * D + col0;
       if (!first) {
-        add_row<D>(dk + off, ak, hr);
-        add_row<D>(dv + off, av, hr);
+        add_row<DC>(dk + off, ak, hr);
+        add_row<DC>(dv + off, av, hr);
       }
-      store_row<D>(dk + off, ak, hr, last ? scale : 1.f);
-      store_row<D>(dv + off, av, hr, 1.f);
+      store_row<DC>(dk + off, ak, hr, last ? scale : 1.f);
+      store_row<DC>(dv + off, av, hr, 1.f);
     }
   }
 }
@@ -788,7 +818,7 @@ __global__ void __launch_bounds__(32 * kDqWarps, 1)
     if (qw >= Tq || (causal && ks > qw + 15) ||
         (window > 0 && ks + SR - 1 <= qw - window))
       continue;                          // masked for all 16 rows
-    frags_by_dims<D, NK>(xh, xl, Kh, Kl, off0, off1, acc);  // dQ += dS K
+    frags_by_dims<D, NK>(xh, xl, Kh, Kl, off0, off1, 0, acc);  // dQ += dS K
   }
   // accumulator rows g and g + 8 are queries qw + qrow(g) and that + 4
   const int row = qw + 8 * (g >> 2) + (g & 3);
@@ -839,7 +869,7 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return err;
   const long long rows = static_cast<long long>(B) * Tq * Hq;
   const long long kv_blocks = static_cast<long long>(B) * Hkv *
-                              dkdv_tiles(Tq, Tk, causal, qend);
+                              dkdv_tiles(Tq, Tk, causal, qend, L::KR);
   const long long dq_blocks =
       static_cast<long long>(B) * Hq *
       ((qend - qbegin + 16 * kDqWarps - 1) / (16 * kDqWarps));
@@ -916,13 +946,17 @@ extern "C" int rt_flash_attention_bwd(const float* q, const float* k,
   cudaError_t err = rt::use_device(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch<64>(q, k, v, o, lse, dO, scratch, dq, dk, dv, B, Tq, Tk,
-                      Hq, Hkv, causal, window, scale, qbegin, qend, device,
-                      st);
-  if (D == 128)
-    return launch<128>(q, k, v, o, lse, dO, scratch, dq, dk, dv, B, Tq, Tk,
-                       Hq, Hkv, causal, window, scale, qbegin, qend, device,
-                       st);
+  switch (D) {
+#define RT_FLASH_BWD_D(W)                                                     \
+  case W:                                                                    \
+    return launch<W>(q, k, v, o, lse, dO, scratch, dq, dk, dv, B, Tq, Tk, Hq, \
+                     Hkv, causal, window, scale, qbegin, qend, device, st);
+    RT_FLASH_BWD_D(64)
+    RT_FLASH_BWD_D(96)
+    RT_FLASH_BWD_D(128)
+    RT_FLASH_BWD_D(192)
+    RT_FLASH_BWD_D(256)
+#undef RT_FLASH_BWD_D
+  }
   return cudaErrorInvalidValue;
 }

@@ -27,8 +27,33 @@ from .pack_bits import _require_cuda
 #: head dims up to 256 are padded to the next of these by
 #: :func:`repro_torch.nn.attention.attend`
 HEAD_DIMS = (64, 96, 128, 192, 256)
-#: head dims the backward kernel is instantiated for
-BWD_HEAD_DIMS = (64, 128)
+#: head dims the backward kernel is instantiated for: the forward's, so
+#: that every head dim :func:`repro_torch.nn.attention.attend` pads to also
+#: trains (past 128 ``csrc/flash_attention_bwd.cu`` takes its wide layout)
+BWD_HEAD_DIMS = HEAD_DIMS
+
+
+def check_flash(q, k, v, window: int, *, cuda: bool = True) -> None:
+    """Raise, with its message, on what the forward kernel does not take;
+    ``cuda=False`` (the op's fake rule) lets the tensors lie on any
+    device."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _require_cuda(t, name, torch.float32, cuda=cuda)
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be (B, T, H, D), got "
+                             f"{tuple(t.shape)}")
+    B, Tq, Hq, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k and v must be (B, Tk, Hkv, D) beside q "
+                         f"{tuple(q.shape)}, got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    Hkv = k.shape[2]
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"{Hq} query heads do not share {Hkv} KV heads")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {D}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -38,23 +63,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the card -> (B, Tq, Hq, D); with ``return_lse`` also the (B, Hq, Tq)
     log-sum-exp of each row's scaled, masked scores (the output is the same
     bits either way)."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _require_cuda(t, name, torch.float32)
-        if t.dim() != 4:
-            raise ValueError(f"{name} must be (B, T, H, D), got "
-                             f"{tuple(t.shape)}")
+    check_flash(q, k, v, window)
     B, Tq, Hq, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
-        raise ValueError(f"k and v must be (B, Tk, Hkv, D) beside q "
-                         f"{tuple(q.shape)}, got {tuple(k.shape)} and "
-                         f"{tuple(v.shape)}")
     Tk, Hkv = k.shape[1], k.shape[2]
-    if Hkv < 1 or Hq % Hkv:
-        raise ValueError(f"{Hq} query heads do not share {Hkv} KV heads")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {D}")
-    if window < 0:
-        raise ValueError(f"window must be >= 0, got {window}")
     out = torch.empty_like(q)
     lse = q.new_empty((B, Hq, Tq)) if return_lse else None
     if B and Tq and Hq and Tk:
@@ -123,13 +134,13 @@ def bwd_plan(B: int, Tq: int, Tk: int, Hq: int, causal: bool):
     return 1, bounds, max(floats(1, r0, r1) for r0, r1 in bounds)
 
 
-def _refuse_bwd(q, k, v, o, lse, do, window):
+def _refuse_bwd(q, k, v, o, lse, do, window, cuda):
     """Raise, with its message, for the first argument the backward kernel
     does not take."""
     named = (("q", q), ("k", k), ("v", v), ("o", o), ("lse", lse),
              ("do", do))
     for name, t in named:
-        _require_cuda(t, name, torch.float32)
+        _require_cuda(t, name, torch.float32, cuda=cuda)
         if t.device != q.device:
             raise ValueError(f"{name} lies on {t.device}, q on {q.device}")
     if q.dim() != 4:
@@ -155,6 +166,26 @@ def _refuse_bwd(q, k, v, o, lse, do, window):
     raise ValueError(f"window must be >= 0, got {window}")
 
 
+def check_flash_bwd(q, k, v, o, lse, do, window: int, *,
+                    cuda: bool = True) -> None:
+    """The backward kernel's refusals in one pass, the messages built
+    only for a refusal; ``cuda=False`` as :func:`check_flash`'s."""
+    dev = q.get_device()
+    ok = q.dim() == 4 and k.dim() == 4 and window >= 0
+    if ok:
+        B, Tq, Hq, D = q.shape
+        Hkv = k.shape[2]
+        ok = (all((t.is_cuda or not cuda) and t.dtype == torch.float32
+                  and t.is_contiguous() and t.get_device() == dev
+                  for t in (q, k, v, o, lse, do))
+              and o.shape == q.shape and do.shape == q.shape
+              and k.shape == v.shape and k.shape[0] == B
+              and k.shape[3] == D and Hkv >= 1 and Hq % Hkv == 0
+              and lse.shape == (B, Hq, Tq) and D in BWD_HEAD_DIMS)
+    if not ok:
+        _refuse_bwd(q, k, v, o, lse, do, window, cuda)
+
+
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              lse: torch.Tensor, do: torch.Tensor, *,
@@ -172,20 +203,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     the batch, or over ranges of query rows, as :func:`bwd_plan` says. The
     arguments are checked in one pass; the messages are built only for a
     refusal (_refuse_bwd)."""
+    check_flash_bwd(q, k, v, o, lse, do, window)
     dev = q.get_device()
-    ok = q.dim() == 4 and k.dim() == 4 and window >= 0
-    if ok:
-        B, Tq, Hq, D = q.shape
-        Tk, Hkv = k.shape[1], k.shape[2]
-        ok = (all(t.is_cuda and t.dtype == torch.float32
-                  and t.is_contiguous() and t.get_device() == dev
-                  for t in (q, k, v, o, lse, do))
-              and o.shape == q.shape and do.shape == q.shape
-              and k.shape == v.shape and k.shape[0] == B
-              and k.shape[3] == D and Hkv >= 1 and Hq % Hkv == 0
-              and lse.shape == (B, Hq, Tq) and D in BWD_HEAD_DIMS)
-    if not ok:
-        _refuse_bwd(q, k, v, o, lse, do, window)
+    B, Tq, Hq, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     if not (B and Tq and Tk and Hq):     # no query sees a key

@@ -9,21 +9,36 @@ kernel (or raises), a CPU tensor runs the plain version in
 :data:`LAUNCHES` counts the CUDA launches of each kernel; the plain
 versions never touch it.
 
-Gradients. The CUDA kernels write their outputs through ``ctypes``, so
-autograd cannot see into them. ``rmsnorm``, ``flash_attention`` and
-``selective_scan`` therefore go through a ``torch.autograd.Function``
-whenever a graph is being built (grad mode on and an input that requires
-grad); under ``torch.no_grad()`` (serving) the kernels are called directly
-and no graph is built. A CPU tensor runs the plain version, which autograd
-differentiates itself. The reference has no backward kernel: XLA
-differentiates plain ``jnp``. On the card each backward is a hand-written
-kernel too (``csrc/rmsnorm_bwd.cu``, ``csrc/flash_attention_bwd.cu``,
-``csrc/selective_scan_bwd.cu``), counted in :data:`LAUNCHES` as
-``rmsnorm_bwd``, ``flash_attention_bwd`` and ``selective_scan_bwd``. The
-flash forward saves its output and each row's log-sum-exp for its
-backward, so the (B, H, Tq, Tk) scores are never materialised; the scan's
-backward keeps a state every 16 steps and recomputes the rest, so the
-scan's states are never all held.
+The LM kernels are ``torch.library`` ops in the ``repro_torch`` namespace
+(``torch.ops.repro_torch.*``, defined below): ``rmsnorm``,
+``rmsnorm_bwd``, ``flash_attention`` (the output and each row's
+log-sum-exp), ``flash_attention_bwd``, ``selective_scan`` and
+``selective_scan_bwd``. :func:`rmsnorm`, :func:`flash_attention` and
+:func:`selective_scan` call the op whatever the device, so every tensor
+takes one path. Each op has
+
+* one implementation for the CPU and CUDA dispatch keys (``_impl_*``): the
+  kernel's wrapper on the card (``csrc/*.cu``), its plain version on the
+  CPU;
+* a fake rule (``_fake_*``) that applies the CUDA wrapper's refusals, with
+  its messages (``check_*`` in :mod:`.rmsnorm`, :mod:`.flash_attention`
+  and :mod:`.selective_scan`, called with ``cuda=False``), and gives the
+  outputs' shapes: a run on fake tensors (``launch/dryrun.py``) refuses
+  what the card would, and allocates nothing;
+* an autograd rule (an ``Autograd`` kernel, ``_autograd``): the forward
+  op's backward calls the backward op
+  (``csrc/rmsnorm_bwd.cu``, ``csrc/flash_attention_bwd.cu``,
+  ``csrc/selective_scan_bwd.cu`` on the card). The flash forward saves its
+  output and each row's log-sum-exp, so the (B, H, Tq, Tk) scores are
+  never materialised; the scan's backward keeps a state every 16 steps and
+  recomputes the rest. The reference has no backward kernel: XLA
+  differentiates plain ``jnp``;
+* a FLOP formula for ``torch.utils.flop_counter``, the work the kernel
+  does at the shapes it is given (:mod:`.costs`, which also holds each
+  op's bytes; :data:`OP_BYTES` maps each op to them).
+
+Under ``torch.no_grad()`` (serving) the entry points call the op below
+autograd, so no graph is built and the Autograd kernel is not entered.
 
 On a device mesh (DTensor inputs, :mod:`repro_torch.distributed`) the three
 LM kernels are reached through ``local_map`` (:mod:`._mesh`): inputs are
@@ -34,23 +49,27 @@ its local tensors, so a launch is counted once on each rank.
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.hints import is_dtensor
 
-from . import ref
+from . import costs, ref
 from ._build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
 from .decode_codes import decode_codes_cuda
 from .encode_codes import encode_codes_cuda
-from .flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
+from .flash_attention import (check_flash, check_flash_bwd,
+                              flash_attention_bwd_cuda, flash_attention_cuda)
 from .pack_bits import pack_codes_cuda, unpack_codes_cuda
-from .rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
-from .selective_scan import (check_scan_args, selective_scan_bwd_cuda,
+from .rmsnorm import (check_rmsnorm, check_rmsnorm_bwd, rmsnorm_bwd_cuda,
+                      rmsnorm_cuda)
+from .selective_scan import (check_scan_args, check_scan_bwd_kernel,
+                             check_scan_kernel, selective_scan_bwd_cuda,
                              selective_scan_cuda)
 from .vq_nn import vq_nearest_cuda
 
 
 def _on_card(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return True
     if t.device.type == "cpu":
         return False
@@ -58,62 +77,246 @@ def _on_card(t: torch.Tensor) -> bool:
                      f"{t.device}")
 
 
-def _builds_graph(*tensors) -> bool:
+def _builds_graph(tensors) -> bool:
+    """Grad mode on and a tensor input that requires grad: the one case in
+    which an op's autograd rule records a node."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-class _RMSNorm(torch.autograd.Function):
-    """The rmsnorm kernel forward, the rmsnorm_bwd kernel back."""
+# ------------------------------------------------------ the LM kernels' ops
+
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("rmsnorm(Tensor x, Tensor scale, float eps) -> Tensor")
+_LIB.define("rmsnorm_bwd(Tensor x, Tensor scale, Tensor g, float eps) "
+            "-> (Tensor, Tensor)")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int window) -> (Tensor, Tensor)")
+_LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, "
+            "Tensor lse, Tensor dout, bool causal, int window) "
+            "-> (Tensor, Tensor, Tensor)")
+_LIB.define("selective_scan(Tensor decay, Tensor inp, Tensor c, Tensor h0) "
+            "-> (Tensor, Tensor)")
+_LIB.define("selective_scan_bwd(Tensor decay, Tensor inp, Tensor c, "
+            "Tensor h0, Tensor gy, Tensor gh) "
+            "-> (Tensor, Tensor, Tensor, Tensor)")
+_OPS = torch.ops.repro_torch
+_BELOW_AUTOGRAD = torch._C._AutoDispatchBelowAutograd
+
+
+def _impl_rmsnorm(x, scale, eps):
+    if _on_card(x):
+        return rmsnorm_cuda(x, scale, eps=eps)
+    return ref.rmsnorm_ref(x, scale, eps)
+
+
+def _impl_rmsnorm_bwd(x, scale, g, eps):
+    if _on_card(x):
+        return rmsnorm_bwd_cuda(x, scale, g, eps=eps)
+    return ref.rmsnorm_bwd_ref(x, scale, g, eps)
+
+
+def _impl_flash_attention(q, k, v, causal, window):
+    if _on_card(q):
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
+    # contiguous, as the kernel's outputs (and the fake rule's) are
+    return tuple(t.contiguous() for t in ref.flash_attention_with_lse_ref(
+        q, k, v, causal=causal, window=window))
+
+
+def _impl_flash_attention_bwd(q, k, v, o, lse, dout, causal, window):
+    if _on_card(q):
+        return flash_attention_bwd_cuda(q, k, v, o, lse, dout, causal=causal,
+                                        window=window)
+    return tuple(t.contiguous() for t in ref.flash_attention_bwd_ref(
+        q, k, v, o, lse, dout, causal=causal, window=window))
+
+
+def _impl_selective_scan(decay, inp, c, h0):
+    if _on_card(decay):
+        return selective_scan_cuda(decay, inp, c, h0)
+    check_scan_args(decay, inp, c, h0)
+    return ref.selective_scan_ref(decay, inp, c, h0)
+
+
+def _impl_selective_scan_bwd(decay, inp, c, h0, gy, gh):
+    if _on_card(decay):
+        return selective_scan_bwd_cuda(decay, inp, c, h0, gy, gh)
+    return ref.selective_scan_bwd_ref(decay, inp, c, h0, gy, gh)
+
+
+def _fake_rmsnorm(x, scale, eps):
+    check_rmsnorm(x, scale, cuda=False)
+    return torch.empty_like(x)
+
+
+def _fake_rmsnorm_bwd(x, scale, g, eps):
+    check_rmsnorm_bwd(x, scale, g, cuda=False)
+    return torch.empty_like(x), torch.empty_like(scale)
+
+
+def _fake_flash_attention(q, k, v, causal, window):
+    check_flash(q, k, v, window, cuda=False)
+    B, Tq, Hq, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, Hq, Tq))
+
+
+def _fake_flash_attention_bwd(q, k, v, o, lse, dout, causal, window):
+    check_flash_bwd(q, k, v, o, lse, dout, window, cuda=False)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _fake_selective_scan(decay, inp, c, h0):
+    check_scan_kernel(decay, inp, c, h0, cuda=False)
+    return decay.new_empty(decay.shape[:3]), torch.empty_like(h0)
+
+
+def _fake_selective_scan_bwd(decay, inp, c, h0, gy, gh):
+    check_scan_bwd_kernel(decay, inp, c, h0, gy, gh, cuda=False)
+    return (torch.empty_like(decay), torch.empty_like(inp),
+            torch.empty_like(c), torch.empty_like(h0))
+
+
+class _RMSNormGrad(torch.autograd.Function):
+    """The rmsnorm op below autograd forward, the rmsnorm_bwd op back."""
 
     @staticmethod
     def forward(ctx, x, scale, eps):
         ctx.save_for_backward(x, scale)
         ctx.eps = eps
-        return rmsnorm_cuda(x, scale, eps=eps)
+        with _BELOW_AUTOGRAD():
+            return _OPS.rmsnorm.default(x, scale, eps)
 
     @staticmethod
     def backward(ctx, g):
         x, scale = ctx.saved_tensors
-        dx, dscale = rmsnorm_bwd_cuda(x, scale, g.contiguous(), eps=ctx.eps)
+        dx, dscale = _OPS.rmsnorm_bwd.default(x, scale, g.contiguous(),
+                                              ctx.eps)
         return dx, dscale, None
 
 
-class _FlashAttention(torch.autograd.Function):
-    """The flash kernel forward (with each row's log-sum-exp), the
-    flash_attention_bwd kernel back; it sums each group's gradient into
-    its KV head."""
+class _FlashAttentionGrad(torch.autograd.Function):
+    """The flash op below autograd forward (its output and each row's
+    log-sum-exp, which takes no gradient), the flash_attention_bwd op back:
+    each group's gradient summed into its KV head."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out, lse = flash_attention_cuda(q, k, v, causal=causal,
-                                        window=window, return_lse=True)
+        with _BELOW_AUTOGRAD():
+            out, lse = _OPS.flash_attention.default(q, k, v, causal, window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
-        return out
+        ctx.mark_non_differentiable(lse)
+        return out, lse
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _g_lse):
         q, k, v, out, lse = ctx.saved_tensors
-        return flash_attention_bwd_cuda(
-            q, k, v, out, lse, g.contiguous(), causal=ctx.causal,
-            window=ctx.window) + (None, None)
+        return (*_OPS.flash_attention_bwd.default(
+            q, k, v, out, lse, g.contiguous(), ctx.causal, ctx.window),
+            None, None)
 
 
-class _SelectiveScan(torch.autograd.Function):
-    """The scan kernel forward, the selective_scan_bwd kernel back, through
-    y, h_last or both (autograd hands zeros for an output with none)."""
+class _SelectiveScanGrad(torch.autograd.Function):
+    """The scan op below autograd forward, the selective_scan_bwd op back,
+    through y, h_last or both (autograd hands zeros for an output with
+    none)."""
 
     @staticmethod
     def forward(ctx, decay, inp, c, h0):
         ctx.save_for_backward(decay, inp, c, h0)
-        return selective_scan_cuda(decay, inp, c, h0)
+        with _BELOW_AUTOGRAD():
+            return tuple(_OPS.selective_scan.default(decay, inp, c, h0))
 
     @staticmethod
     def backward(ctx, gy, gh):
-        grads = selective_scan_bwd_cuda(*ctx.saved_tensors, gy.contiguous(),
-                                        gh.contiguous())
+        grads = _OPS.selective_scan_bwd.default(
+            *ctx.saved_tensors, gy.contiguous(), gh.contiguous())
         return tuple(g if need else None
                      for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def _autograd(name, fn, n_tensors):
+    """The op's Autograd kernel: ``fn.apply`` where a graph is built (grad
+    mode on and a tensor input that requires grad), else straight to the
+    implementation below autograd -- the serving path, in as few host
+    operations as the dispatcher allows."""
+    op = getattr(_OPS, name).default
+
+    def kernel(*args):
+        if _builds_graph(args[:n_tensors]):
+            return fn.apply(*args)
+        with _BELOW_AUTOGRAD():
+            return op(*args)
+
+    return kernel
+
+
+for _name in ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+              "flash_attention_bwd", "selective_scan", "selective_scan_bwd"):
+    for _key in ("CPU", "CUDA"):
+        _LIB.impl(_name, globals()[f"_impl_{_name}"], _key)
+    torch.library.register_fake(f"repro_torch::{_name}",
+                                globals()[f"_fake_{_name}"], lib=_LIB)
+for _name, _fn, _n in (("rmsnorm", _RMSNormGrad, 2),
+                       ("flash_attention", _FlashAttentionGrad, 3),
+                       ("selective_scan", _SelectiveScanGrad, 4)):
+    _LIB.impl(_name, _autograd(_name, _fn, _n), "Autograd")
+
+
+@register_flop_formula(_OPS.rmsnorm)
+def _flops_rmsnorm(x, scale, eps, *args, **kw):
+    return costs.rmsnorm_flops(x)
+
+
+@register_flop_formula(_OPS.rmsnorm_bwd)
+def _flops_rmsnorm_bwd(x, scale, g, eps, *args, **kw):
+    return costs.rmsnorm_bwd_flops(x)
+
+
+@register_flop_formula(_OPS.flash_attention)
+def _flops_flash_attention(q, k, v, causal, window, *args, **kw):
+    return costs.flash_flops(q, k, v, causal, window)
+
+
+@register_flop_formula(_OPS.flash_attention_bwd)
+def _flops_flash_attention_bwd(q, k, v, o, lse, dout, causal, window, *args,
+                               **kw):
+    return costs.flash_bwd_flops(q, k, causal, window)
+
+
+@register_flop_formula(_OPS.selective_scan)
+def _flops_selective_scan(decay, *args, **kw):
+    return costs.scan_flops(decay)
+
+
+@register_flop_formula(_OPS.selective_scan_bwd)
+def _flops_selective_scan_bwd(decay, *args, **kw):
+    return costs.scan_bwd_flops(decay)
+
+
+def _call(op, n_tensors, *args):
+    """``op(*args)``; where no graph is built, entered below autograd
+    (what its Autograd kernel would choose), which saves the dispatcher a
+    Python crossing a call on the serving path."""
+    if _builds_graph(args[:n_tensors]):
+        return op(*args)
+    with _BELOW_AUTOGRAD():
+        return op(*args)
+
+
+#: each op's bytes (inputs read and outputs written once) from its
+#: arguments' shapes, for the memory term of a counted step
+OP_BYTES = {
+    _OPS.rmsnorm.default: lambda x, *a: costs.rmsnorm_bytes(x),
+    _OPS.rmsnorm_bwd.default: lambda x, *a: costs.rmsnorm_bwd_bytes(x),
+    _OPS.flash_attention.default:
+        lambda q, k, v, *a: costs.flash_bytes(q, k, v),
+    _OPS.flash_attention_bwd.default:
+        lambda q, k, *a: costs.flash_bwd_bytes(q, k),
+    _OPS.selective_scan.default: lambda d, *a: costs.scan_bytes(d),
+    _OPS.selective_scan_bwd.default: lambda d, *a: costs.scan_bwd_bytes(d),
+}
 
 
 def vq_nearest(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -177,17 +380,13 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     if is_dtensor(x):
         from ._mesh import rmsnorm_mesh
         return rmsnorm_mesh(rmsnorm, x, scale, eps)
-    if _on_card(x):
-        # the kernel reads whole rows: float32 views are copied to
-        # contiguous ones (other dtypes are refused, not copied first)
-        if x.dtype == torch.float32 and not x.is_contiguous():
-            x = x.contiguous()
-        if scale.dtype == torch.float32 and not scale.is_contiguous():
-            scale = scale.contiguous()
-        if _builds_graph(x, scale):
-            return _RMSNorm.apply(x, scale, eps)
-        return rmsnorm_cuda(x, scale, eps=eps)
-    return ref.rmsnorm_ref(x, scale, eps)
+    # the kernel reads whole rows: float32 views are copied to contiguous
+    # ones (other dtypes are refused on the card, not copied first)
+    if x.dtype == torch.float32 and not x.is_contiguous():
+        x = x.contiguous()
+    if scale.dtype == torch.float32 and not scale.is_contiguous():
+        scale = scale.contiguous()
+    return _call(_OPS.rmsnorm.default, 2, x, scale, eps)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -201,12 +400,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         from ._mesh import flash_attention_mesh
         return flash_attention_mesh(flash_attention, q, k, v, causal=causal,
                                     window=window)
-    if _on_card(q):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        if _builds_graph(q, k, v):
-            return _FlashAttention.apply(q, k, v, causal, window)
-        return flash_attention_cuda(q, k, v, causal=causal, window=window)
-    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return _call(_OPS.flash_attention.default, 3, q.contiguous(),
+                 k.contiguous(), v.contiguous(), bool(causal),
+                 int(window))[0]
 
 
 def selective_scan(decay: torch.Tensor, inp: torch.Tensor, c: torch.Tensor,
@@ -220,9 +416,4 @@ def selective_scan(decay: torch.Tensor, inp: torch.Tensor, c: torch.Tensor,
     if is_dtensor(decay):
         from ._mesh import selective_scan_mesh
         return selective_scan_mesh(selective_scan, decay, inp, c, h0)
-    if _on_card(decay):
-        if _builds_graph(decay, inp, c, h0):
-            return _SelectiveScan.apply(decay, inp, c, h0)
-        return selective_scan_cuda(decay, inp, c, h0)
-    check_scan_args(decay, inp, c, h0)
-    return ref.selective_scan_ref(decay, inp, c, h0)
+    return tuple(_call(_OPS.selective_scan.default, 4, decay, inp, c, h0))

@@ -63,8 +63,12 @@ def kernel_path(bits: int, count: int, *tensors: torch.Tensor,
     return path + ("+tail" if count % CHUNK else "")
 
 
-def _require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
-    if t.device.type != "cuda":
+def _require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, *,
+                  cuda: bool = True) -> None:
+    """Raise unless ``t`` lies on the card (where ``cuda``), has ``dtype``
+    and is contiguous. ``cuda=False`` is the ops' fake rules' check, which
+    takes a fake tensor on either device."""
+    if cuda and t.device.type != "cuda":
         raise ValueError(f"{name} must lie on a CUDA device, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")

@@ -322,6 +322,19 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
     return lse
 
 
+def flash_attention_with_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, *, causal: bool = True,
+                                 window: int = 0):
+    """(:func:`flash_attention_ref`, :func:`flash_attention_lse_ref`) of
+    one call, the same bits as the two, from one pass over the scores."""
+    s, vf = _masked_scores(q, k, v, causal, window)
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1),
+                       vf).to(q.dtype)
+    lse = torch.logsumexp(s, -1)
+    lse[..., blind_rows(q.shape[1], k.shape[1], window):] = math.inf
+    return out, lse
+
+
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             lse: torch.Tensor, do: torch.Tensor, *,

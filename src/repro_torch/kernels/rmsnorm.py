@@ -19,25 +19,33 @@ from . import _build
 from .pack_bits import _require_cuda
 
 
-def _refuse(x: torch.Tensor, scale: torch.Tensor, d: int):
-    _require_cuda(x, "x", torch.float32)
-    _require_cuda(scale, "scale", torch.float32)
+def _refuse(x: torch.Tensor, scale: torch.Tensor, cuda: bool):
+    _require_cuda(x, "x", torch.float32, cuda=cuda)
+    _require_cuda(scale, "scale", torch.float32, cuda=cuda)
     if scale.device != x.device:
         raise ValueError(f"scale lies on {scale.device}, x on {x.device}")
     raise ValueError(f"x must be (..., d) and scale (d,), got "
                      f"{tuple(x.shape)} and {tuple(scale.shape)}")
 
 
+def check_rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
+                  cuda: bool = True) -> None:
+    """Raise, with its message, on what the kernel does not take;
+    ``cuda=False`` (the op's fake rule) lets a tensor lie on any device."""
+    d = x.shape[-1] if x.dim() else 0
+    if not ((x.is_cuda or not cuda) and x.dtype == torch.float32
+            and x.is_contiguous() and scale.dtype == torch.float32
+            and scale.is_contiguous()
+            and scale.get_device() == x.get_device() and d >= 1
+            and scale.shape == (d,)):
+        _refuse(x, scale, cuda)
+
+
 def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *,
                  eps: float = 1e-6) -> torch.Tensor:
     """(..., d) float32 rows + (d,) float32 scale on the card -> (..., d)."""
-    d = x.shape[-1] if x.dim() else 0
-    dev = x.get_device()
-    if not (x.is_cuda and x.dtype == torch.float32 and x.is_contiguous()
-            and scale.dtype == torch.float32 and scale.is_contiguous()
-            and scale.get_device() == dev and d >= 1
-            and scale.shape == (d,)):
-        _refuse(x, scale, d)
+    check_rmsnorm(x, scale)
+    d, dev = x.shape[-1], x.get_device()
     out = torch.empty_like(x)
     n = x.numel() // d
     if n:
@@ -53,16 +61,27 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *,
 PARTIALS = 256
 
 
-def _refuse_bwd(x, scale, g):
-    _require_cuda(x, "x", torch.float32)
-    _require_cuda(scale, "scale", torch.float32)
-    _require_cuda(g, "g", torch.float32)
+def _refuse_bwd(x, scale, g, cuda):
+    _require_cuda(x, "x", torch.float32, cuda=cuda)
+    _require_cuda(scale, "scale", torch.float32, cuda=cuda)
+    _require_cuda(g, "g", torch.float32, cuda=cuda)
     for name, t in (("scale", scale), ("g", g)):
         if t.device != x.device:
             raise ValueError(f"{name} lies on {t.device}, x on {x.device}")
     raise ValueError(f"x and g must be (..., d) and scale (d,), got "
                      f"{tuple(x.shape)}, {tuple(g.shape)} and "
                      f"{tuple(scale.shape)}")
+
+
+def check_rmsnorm_bwd(x, scale, g, *, cuda: bool = True) -> None:
+    """The backward kernel's refusals, as :func:`check_rmsnorm`'s."""
+    d = x.shape[-1] if x.dim() else 0
+    dev = x.get_device()
+    if not (all((t.is_cuda or not cuda) and t.dtype == torch.float32
+                and t.is_contiguous() and t.get_device() == dev
+                for t in (x, scale, g))
+            and d >= 1 and scale.shape == (d,) and g.shape == x.shape):
+        _refuse_bwd(x, scale, g, cuda)
 
 
 def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
@@ -72,12 +91,8 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     -> (dx (..., d), dscale (d,)). ``rsqrt(mean(x^2) + eps)`` is recomputed
     from x; dscale sums per-block float64 partials in a fixed order.
     Checked in one pass, as the forward is."""
-    d = x.shape[-1] if x.dim() else 0
-    dev = x.get_device()
-    if not (all(t.is_cuda and t.dtype == torch.float32 and t.is_contiguous()
-                and t.get_device() == dev for t in (x, scale, g))
-            and d >= 1 and scale.shape == (d,) and g.shape == x.shape):
-        _refuse_bwd(x, scale, g)
+    check_rmsnorm_bwd(x, scale, g)
+    d, dev = x.shape[-1], x.get_device()
     dx = torch.empty_like(x)
     n = x.numel() // d
     if not n:

@@ -62,18 +62,46 @@ def check_scan_args(decay: torch.Tensor, inp: torch.Tensor, c: torch.Tensor,
                              f"{decay.device}: all four must share a device")
 
 
-def selective_scan_cuda(decay: torch.Tensor, inp: torch.Tensor,
-                        c: torch.Tensor, h0: torch.Tensor):
-    """decay, inp (B, T, di, N), c (B, T, N), h0 (B, di, N) float32 on the
-    card -> (y (B, T, di), h_last (B, di, N))."""
+def check_scan_kernel(decay, inp, c, h0, *, cuda: bool = True) -> None:
+    """The kernels' refusals: :func:`check_scan_args`, then the card (where
+    ``cuda``; ``cuda=False`` is the op's fake rule, which takes a tensor on
+    any device), N <= :data:`MAX_STATE` and B <= 65,535."""
     check_scan_args(decay, inp, c, h0)
-    if not decay.is_cuda:
+    if cuda and not decay.is_cuda:
         raise ValueError(f"decay must lie on a CUDA device, got "
                          f"{decay.device}")
     B, T, di, N = decay.shape
     if N > MAX_STATE or B > 65535:
         raise ValueError(f"the kernel takes N <= {MAX_STATE} states and "
                          f"B <= 65,535, got N {N} and B {B}")
+
+
+def check_scan_bwd_kernel(decay, inp, c, h0, gy, gh, *,
+                          cuda: bool = True) -> None:
+    """The backward kernel's refusals: :func:`check_scan_kernel`'s, then
+    gy (B, T, di) and gh (B, di, N), float32 and contiguous beside
+    decay."""
+    check_scan_kernel(decay, inp, c, h0, cuda=cuda)
+    B, T, di, N = decay.shape
+    for name, t, shape in (("gy", gy, (B, T, di)), ("gh", gh, (B, di, N))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != decay.device:
+            raise ValueError(f"{name} lies on {t.device}, decay on "
+                             f"{decay.device}")
+
+
+def selective_scan_cuda(decay: torch.Tensor, inp: torch.Tensor,
+                        c: torch.Tensor, h0: torch.Tensor):
+    """decay, inp (B, T, di, N), c (B, T, N), h0 (B, di, N) float32 on the
+    card -> (y (B, T, di), h_last (B, di, N))."""
+    check_scan_kernel(decay, inp, c, h0)
+    B, T, di, N = decay.shape
     y = decay.new_empty((B, T, di))
     h_last = torch.empty_like(h0)
     if di:
@@ -102,25 +130,8 @@ def selective_scan_bwd_cuda(decay: torch.Tensor, inp: torch.Tensor,
     in a fixed order (no atomics): the same bits run to run. The scratch
     (:func:`bwd_scratch`: 67 MB of checkpoints and 67 MB of partials at
     Jamba's (2, 1,024, 8,192, 16)) is freed on return."""
-    check_scan_args(decay, inp, c, h0)
-    if not decay.is_cuda:
-        raise ValueError(f"decay must lie on a CUDA device, got "
-                         f"{decay.device}")
+    check_scan_bwd_kernel(decay, inp, c, h0, gy, gh)
     B, T, di, N = decay.shape
-    if N > MAX_STATE or B > 65535:
-        raise ValueError(f"the kernel takes N <= {MAX_STATE} states and "
-                         f"B <= 65,535, got N {N} and B {B}")
-    for name, t, shape in (("gy", gy, (B, T, di)), ("gh", gh, (B, di, N))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got "
-                             f"{tuple(t.shape)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != decay.device:
-            raise ValueError(f"{name} lies on {t.device}, decay on "
-                             f"{decay.device}")
     d_decay, d_inp = torch.empty_like(decay), torch.empty_like(inp)
     dc, dh0 = torch.empty_like(c), torch.empty_like(h0)
     if not di:

@@ -191,6 +191,11 @@ def _apply_block(bp: dict, cfg, mixer: str, ffn: str, x, positions, *,
     elif mixer == "mla":
         mix, new_cache = mla_attention(bp["mixer"], cfg, h, positions,
                                        cache=cache, cache_index=cache_index)
+    elif mixer in ("mlstm", "slstm") and hints.is_dtensor(h):
+        from repro_torch.kernels._mesh import batch_local
+        mix, new_cache = batch_local(
+            lambda p, a, c: _RECURRENT[mixer](p, cfg, a, cache=c),
+            bp["mixer"], h, cache)
     else:
         mix, new_cache = _RECURRENT[mixer](bp["mixer"], cfg, h, cache=cache)
     x = x + mix
@@ -287,11 +292,11 @@ def encode_audio(params, cfg: ModelConfig, frames: torch.Tensor
     for bp in params["encoder"]:
         h = apply_norm(cfg.norm, bp["pre_norm"], x, cfg.norm_eps)
         mp = bp["mixer"]
-        q = rotate((h @ mp["wq"]).reshape(B, T, cfg.n_heads, hd), cos_sin)
-        k = rotate((h @ mp["wk"]).reshape(B, T, cfg.n_kv_heads, hd), cos_sin)
-        v = (h @ mp["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+        q = rotate(hints.split_heads(h @ mp["wq"], cfg.n_heads), cos_sin)
+        k = rotate(hints.split_heads(h @ mp["wk"], cfg.n_kv_heads), cos_sin)
+        v = hints.split_heads(h @ mp["wv"], cfg.n_kv_heads)
         o = attend(q, k, v, causal=False)
-        x = x + o.reshape(B, T, cfg.n_heads * hd) @ mp["wo"]
+        x = x + hints.merge_heads(o) @ mp["wo"]
         h = apply_norm(cfg.norm, bp["post_norm"], x, cfg.norm_eps)
         x = x + mlp(bp["ffn"], h, cfg.activation)
     return apply_norm(cfg.norm, params["enc_final_norm"], x, cfg.norm_eps)

@@ -216,7 +216,7 @@ def attention(params: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
         out = attend(q, cache.k, cache.v, causal=False,
                      kv_len_mask=valid.expand(B, S))
         new_cache = cache
-    out = out.reshape(B, T, cfg.n_heads * hd) @ params["wo"]
+    out = hints.merge_heads(out) @ params["wo"]
     return out, new_cache
 
 
@@ -260,4 +260,4 @@ def cross_attention(params: dict, cfg, x: torch.Tensor,
     v = hints.kv_heads(hints.split_heads(enc_out @ params["wv"],
                                          cfg.n_kv_heads))
     out = attend(q, k, v, causal=False)
-    return out.reshape(B, T, cfg.n_heads * hd) @ params["wo"]
+    return hints.merge_heads(out) @ params["wo"]

@@ -119,7 +119,7 @@ def mla_attention(params: dict, cfg, x: torch.Tensor,
         idx = int(cache_index)
         hints.write_slot(cache.c_kv, idx, c_kv)
         hints.write_slot(cache.k_rope, idx, k_rope)
-        w_b = params["wkv_b"].reshape(m.kv_lora_rank, nq, dn + dv)
+        w_b = hints.split_heads(params["wkv_b"], nq)
         w_kb, w_vb = w_b[..., :dn].float(), w_b[..., dn:].float()
         cc = cache.c_kv.float()
         q_lat = torch.einsum("bthn,lhn->bthl", q_nope.float(), w_kb)
@@ -133,7 +133,7 @@ def mla_attention(params: dict, cfg, x: torch.Tensor,
         out_lat = torch.einsum("bhts,bsl->bthl", probs, cc)
         out = torch.einsum("bthl,lhv->bthv", out_lat, w_vb).to(x.dtype)
         new_cache = cache
-    out = out.reshape(B, T, nq * dv) @ params["wo"]
+    out = hints.merge_heads(out) @ params["wo"]
     return out, new_cache
 
 

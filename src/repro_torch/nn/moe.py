@@ -80,11 +80,20 @@ def router_topk(logits: torch.Tensor, k: int, scoring: str = "softmax"):
     return gate, idx, probs
 
 
+def expert_counts(expert_ids: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """(A,) expert ids -> (n_experts,) int64 assignments an expert: a
+    bincount whose length does not depend on the ids' values, so that it
+    also runs on fake tensors (integer sums, the same in any order)."""
+    return torch.zeros(n_experts, dtype=torch.int64,
+                       device=expert_ids.device).scatter_add_(
+        0, expert_ids.long(), torch.ones_like(expert_ids, dtype=torch.int64))
+
+
 def load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
                       n_experts: int) -> torch.Tensor:
     """Switch-Transformer aux: E * sum_e f_e * P_e."""
     N, k = idx.shape
-    counts = torch.bincount(idx.reshape(-1), minlength=n_experts).float()
+    counts = expert_counts(idx.reshape(-1), n_experts).float()
     return n_experts * torch.sum(counts / (N * k) * probs.mean(0))
 
 
@@ -94,7 +103,7 @@ def positions_in_expert(expert_ids: torch.Tensor,
     (A,) expert ids -> (A,) int64 positions."""
     A = expert_ids.shape[0]
     order = torch.argsort(expert_ids, stable=True)
-    counts = torch.bincount(expert_ids, minlength=n_experts)
+    counts = expert_counts(expert_ids, n_experts)
     starts = torch.cumsum(counts, 0) - counts
     pos_sorted = torch.arange(A, device=expert_ids.device) \
         - starts[expert_ids[order]]

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch import resolve_device
+from repro_torch import hints, resolve_device
 from repro_torch.nn.layers import (_draw_device, causal_conv1d, dense_init,
                                    init_causal_conv1d, uniform_init)
 
@@ -146,14 +146,14 @@ def mlstm(params: dict, cfg, x: torch.Tensor, *,
         conv_tail = xfull[:, -(K - 1):]
 
     def heads(t):
-        return t.reshape(B, -1, NH, DH).transpose(1, 2).float()
+        return hints.split_heads(t, NH).transpose(1, 2).float()
 
     q = heads(xconv @ params["wq"])
     k = heads(xconv @ params["wk"])
     v = heads(xconv @ params["wv"])
     gates = (xconv @ params["w_if"]).float()            # (B, T, 2NH)
     ig = gates[..., :NH].transpose(1, 2)                # (B, NH, T) log-i
-    lf = F.logsigmoid(gates[..., NH:]).transpose(1, 2)
+    lf = hints.pointwise(F.logsigmoid, gates[..., NH:]).transpose(1, 2)
 
     if cache is None:
         C = x.new_zeros((B, NH, DH, DH), dtype=torch.float32)
@@ -178,7 +178,7 @@ def mlstm(params: dict, cfg, x: torch.Tensor, *,
             hs.append(h)
         h = torch.cat(hs, dim=2)[:, :, :T]
 
-    h = h.transpose(1, 2).reshape(B, T, di).to(x.dtype)
+    h = hints.merge_heads(h.transpose(1, 2)).to(x.dtype)
     h = h + params["skip_scale"] * xconv
     out = (h * F.silu(z)) @ params["down_proj"]
     return out, MLSTMCache(C=C, n=n, m=m, conv=conv_tail.contiguous())
@@ -224,12 +224,12 @@ def _slstm_step(params: dict, d: int, carry, x_t: torch.Tensor):
     -> (the new carry, h)."""
     c, n, h, m = carry
     B = c.shape[0]
-    rec = torch.einsum("bhd,hde->bhe", h.reshape(B, NH, d // NH),
-                       params["r"]).reshape(B, 4 * d)
+    rec = hints.merge_heads(torch.einsum(
+        "bhd,hde->bhe", hints.split_heads(h, NH), params["r"]))
     zp, ip, fp, op = (x_t + rec + params["bias"]).chunk(4, dim=-1)
     z = torch.tanh(zp)
     o = torch.sigmoid(op)
-    log_f = F.logsigmoid(fp)
+    log_f = hints.pointwise(F.logsigmoid, fp)
     m_new = torch.maximum(log_f + m, ip)
     i = torch.exp(ip - m_new)
     f = torch.exp(log_f + m - m_new)

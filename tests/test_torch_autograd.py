@@ -1,15 +1,16 @@
-"""Port parity: the gradients of the LM kernels' autograd Functions against
-``jax.vjp`` of the JAX package's ``repro.kernels.ref`` functions.
+"""Port parity: the gradients of the LM kernels' ``torch.library`` ops
+against ``jax.vjp`` of the JAX package's ``repro.kernels.ref`` functions.
 
 On the card ``ops.rmsnorm``, ``ops.flash_attention`` and
-``ops.selective_scan`` run the CUDA kernel forward inside a
-``torch.autograd.Function``, and a backward kernel back
-(``rmsnorm_bwd_cuda``, ``flash_attention_bwd_cuda``,
-``selective_scan_bwd_cuda``). Here every kernel symbol a Function calls,
-forward and backward, is swapped for a stand-in that returns the plain
-result computed under ``torch.no_grad()``, with no ``grad_fn``, as the
-kernel's output has none; so every gradient below comes from the
-Function's backward alone, and the stand-ins count the calls. The
+``ops.selective_scan`` call a ``repro_torch`` op whose CUDA implementation
+is the kernel forward, and whose autograd rule calls the backward op, a
+backward kernel on the card (``rmsnorm_bwd_cuda``,
+``flash_attention_bwd_cuda``, ``selective_scan_bwd_cuda``). Here
+``ops._on_card`` is patched and every kernel symbol an op calls, forward
+and backward, is swapped for a stand-in that returns the plain result
+computed under ``torch.no_grad()``, with no ``grad_fn``, as the kernel's
+output has none; so every gradient below comes from the ops' autograd
+rules alone, and the stand-ins count the calls. The
 backward kernels' plain versions (``ref.rmsnorm_bwd_ref``,
 ``ref.flash_attention_bwd_ref``) are also held to ``jax.vjp`` directly, and
 the backward wrappers' refusals are reached without a card through a CPU
@@ -24,6 +25,8 @@ magnitude of the terms summed into each gradient element (the same
 gradient taken on the absolute values of every input and output gradient),
 the scan rule of ``PERF.md`` section 2.
 """
+import sys
+
 import numpy as np
 import pytest
 
@@ -54,8 +57,9 @@ def one_thread():
 
 @pytest.fixture
 def stand_ins(monkeypatch):
-    """Each kernel symbol the Functions call, forward and backward,
-    replaced by its plain version under no_grad; the calls are counted."""
+    """Each kernel symbol the ops call, forward and backward, replaced by
+    its plain version under no_grad, CPU tensors taken as on the card; the
+    calls are counted."""
     calls = {"rmsnorm": 0, "flash_attention": 0, "selective_scan": 0,
              "rmsnorm_bwd": 0, "flash_attention_bwd": 0,
              "selective_scan_bwd": 0}
@@ -77,6 +81,7 @@ def stand_ins(monkeypatch):
         return o, ref.flash_attention_lse_ref(q, k, v, causal=causal,
                                               window=window)
 
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
     monkeypatch.setattr(ops, "rmsnorm_cuda", plain(
         "rmsnorm", lambda x, s, *, eps: ref.rmsnorm_ref(x, s, eps)))
     monkeypatch.setattr(ops, "flash_attention_cuda",
@@ -109,7 +114,7 @@ def test_rmsnorm_function_gradients_match_reference(stand_ins, shape):
     rng = np.random.default_rng(sum(shape))
     x, scale, g = _f32(rng, *shape), _f32(rng, shape[-1]), _f32(rng, *shape)
     tx, ts = _leaves(x, scale)
-    out = ops._RMSNorm.apply(tx, ts, 1e-6)
+    out = ops.rmsnorm(tx, ts, eps=1e-6)
     out.backward(torch.from_numpy(g))
     assert stand_ins["rmsnorm"] == 1 and stand_ins["rmsnorm_bwd"] == 1
     _, vjp = jax.vjp(lambda a, b: jref.rmsnorm_ref(a, b, 1e-6),
@@ -154,7 +159,7 @@ def _flash_function_case(stand_ins, causal, window, Tq, Tk, seed):
                                                   (Tk, Hkv)))
     g = _f32(rng, B, Tq, Hq, D)
     tq, tk, tv = _leaves(q, k, v)
-    out = ops._FlashAttention.apply(tq, tk, tv, causal, window)
+    out = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
     out.backward(torch.from_numpy(g))
     assert stand_ins["flash_attention"] == 1
     assert stand_ins["flash_attention_bwd"] == 1
@@ -203,7 +208,7 @@ def test_scan_function_gradients_match_reference(stand_ins, shape, through):
     gy = _f32(rng, B, T, di) * (through != "h_last")
     gh = _f32(rng, B, di, N) * (through != "y")
     leaves = _leaves(*arrays)
-    y, h = ops._SelectiveScan.apply(*leaves)
+    y, h = ops.selective_scan(*leaves)
     loss = 0
     if through != "h_last":
         loss = loss + (y * torch.from_numpy(gy)).sum()
@@ -235,35 +240,58 @@ def _dispatch_args(name):
     return _leaves(*_scan_inputs(rng, 1, 4, 6, 4)), {}
 
 
-FUNCTIONS = {"rmsnorm": "_RMSNorm", "flash_attention": "_FlashAttention",
-             "selective_scan": "_SelectiveScan"}
+#: the autograd.Function behind each op's autograd rule
+FUNCTIONS = {"rmsnorm": "_RMSNormGrad",
+             "flash_attention": "_FlashAttentionGrad",
+             "selective_scan": "_SelectiveScanGrad"}
 
 
 @pytest.mark.parametrize("name", sorted(FUNCTIONS))
 def test_dispatcher_builds_no_graph_under_no_grad(stand_ins, monkeypatch,
                                                   name):
-    """On the card, under ``torch.no_grad()`` (serving), ``ops`` calls the
-    kernel directly even for inputs that require grad: no Function, no
-    graph. With grad mode on, the Function carries the gradient."""
-    monkeypatch.setattr(ops, "_on_card", lambda t: True)
+    """On the card, under ``torch.no_grad()`` (serving), the op passes its
+    autograd rule through even for inputs that require grad: no Function,
+    no graph, and the entry point enters the op below autograd, so its
+    Autograd kernel is not called at all. With grad mode on, the op's autograd rule carries the
+    gradient, its backward the backward op."""
     args, kw = _dispatch_args(name)
-    real = getattr(ops, FUNCTIONS[name])
+    function = getattr(ops, FUNCTIONS[name])
+    forward = function.forward
+    built = []
 
-    class Refused(real):
-        @staticmethod
-        def forward(ctx, *a):
-            raise AssertionError("a Function was built under no_grad")
+    def refused(ctx, *a):
+        raise AssertionError("a Function was built under no_grad")
 
-    monkeypatch.setattr(ops, FUNCTIONS[name], Refused)
+    def counted(ctx, *a):
+        built.append(name)
+        return forward(ctx, *a)
+
+    # the entry point's own bypass: the op is entered below autograd, so
+    # its Autograd kernel's frame is not under the kernel's call
+    autograd_kernel = ops._autograd(name, function, 0).__code__
+    kernel = getattr(ops, f"{name}_cuda")
+
+    def below_autograd(*a, **k):
+        frame = sys._getframe()
+        while frame is not None:
+            assert frame.f_code is not autograd_kernel, \
+                "the Autograd kernel was entered under no_grad"
+            frame = frame.f_back
+        return kernel(*a, **k)
+
+    monkeypatch.setattr(ops, f"{name}_cuda", below_autograd)
+    monkeypatch.setattr(function, "forward", staticmethod(refused))
     with torch.no_grad():
         out = getattr(ops, name)(*args, **kw)
     outs = out if isinstance(out, tuple) else (out,)
     assert all(t.grad_fn is None and not t.requires_grad for t in outs)
     assert stand_ins[name] == 1
 
-    monkeypatch.setattr(ops, FUNCTIONS[name], real)
+    monkeypatch.setattr(ops, f"{name}_cuda", kernel)
+    monkeypatch.setattr(function, "forward", staticmethod(counted))
     out = getattr(ops, name)(*args, **kw)
     outs = out if isinstance(out, tuple) else (out,)
+    assert built == [name]
     assert stand_ins[name] == 2
     assert stand_ins[name + "_bwd"] == 0
     assert all(type(t.grad_fn).__name__ == FUNCTIONS[name] + "Backward"
@@ -409,7 +437,8 @@ BWD_REFUSALS = [
     ("flash_head_dim", lambda: flash_attention_bwd_cuda(
         **{n: _card(*t.shape[:-1], 32) if n != "lse" else t
            for n, t in _flash_args().items()}),
-     ValueError, "the kernel takes head dims (64, 128), got 32"),
+     ValueError, "the kernel takes head dims (64, 96, 128, 192, 256), got "
+     "32"),
     ("flash_o_shape", lambda: flash_attention_bwd_cuda(**_flash_args(
         o=_card(1, 5, 2, 64))),
      ValueError, "o and do must have q's shape (1, 4, 2, 64), got "

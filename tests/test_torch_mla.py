@@ -298,11 +298,25 @@ def test_flash_forward_refuses_other_head_dims(d):
 
 
 @pytest.mark.parametrize("d", [96, 192, 256])
-def test_flash_backward_still_refuses_new_head_dims(d):
-    """The backward kernel keeps its own head dims (64, 128)."""
-    assert d in HEAD_DIMS and d not in BWD_HEAD_DIMS
+def test_flash_backward_still_refuses_new_head_dims(d, monkeypatch):
+    """The backward kernel takes the forward's head dims (64, 96, 128,
+    192, 256), so MLA's and gemma-7b's widths train: at 96, 192 and 256 a
+    call passes every argument check and reaches the kernel library (a
+    stand-in here that raises), where another head dim is refused with the
+    forward's list."""
+    from repro_torch.kernels import _build
+
+    def library():
+        raise LookupError("reached the launch")
+
+    monkeypatch.setattr(_build, "library", library)
+    assert d in HEAD_DIMS and BWD_HEAD_DIMS == HEAD_DIMS
     args = {n: _card(*t.shape[:-1], d) if n != "lse" else t
             for n, t in _flash_args().items()}
+    with pytest.raises(LookupError, match="reached the launch"):
+        flash_attention_bwd_cuda(**args)
+    args = {n: _card(*t.shape[:-1], d + 16) if n != "lse" else t
+            for n, t in _flash_args().items()}
     with pytest.raises(ValueError, match=rf"the kernel takes head dims "
-                       rf"\(64, 128\), got {d}"):
+                       rf"\(64, 96, 128, 192, 256\), got {d + 16}"):
         flash_attention_bwd_cuda(**args)

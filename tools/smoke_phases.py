@@ -4,8 +4,10 @@ kernels' build, ``lm_kernels`` and the named phases, then the ``grad``
 line. A phase is one of ``chip_smoke.py``'s ``WIDE_PHASES`` (with its
 profile and flash row) or one of its training phases, ``lm_whisper_train``
 (with the flash backward's rows at whisper-base's three shapes) and
-``lm_hybrid_train`` (with selective_scan_bwd's row), or ``lm_mesh`` (the
-mesh path, after the ``lm_serve`` phase whose weights it takes). Every
+``lm_hybrid_train`` (with selective_scan_bwd's row), ``lm_wide_train``
+(with the flash backward's rows at D 96, 192 and 256), ``lm_mesh`` (the
+mesh path, after the ``lm_serve`` phase whose weights it takes) or
+``lm_dryrun`` (the dry run in a subprocess). Every
 line is the one
 ``chip_smoke.py`` prints, from the same functions and under the same
 checks.
@@ -38,13 +40,21 @@ def hybrid_train(dev):
                                   out["launches"]["selective_scan_bwd"])})
 
 
+def wide_train(dev):
+    out = C.phase_lm_wide_train(dev)
+    C.emit({"phase": "lm_wide_train_flash_bwd_rows",
+            **C.wide_bwd_rows(dev, out["bwd_by_width"])})
+
+
 def mesh(dev):
     lm = C.phase_lm_serve(dev)
     C.phase_lm_mesh(dev, lm)
 
 
 TRAIN_PHASES = {"lm_whisper_train": whisper_train,
-                "lm_hybrid_train": hybrid_train, "lm_mesh": mesh}
+                "lm_hybrid_train": hybrid_train,
+                "lm_wide_train": wide_train, "lm_mesh": mesh,
+                "lm_dryrun": C.phase_lm_dryrun}
 
 
 def main(argv) -> int:
@@ -62,6 +72,7 @@ def main(argv) -> int:
         return 1
     t0 = time.perf_counter()
     dev, _ = C.phase_device()
+    C.plain_reference_on_cpu()
     C.phase_build()
     C.phase_lm_kernels(dev)
     for name in names:
