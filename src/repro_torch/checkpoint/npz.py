@@ -85,8 +85,10 @@ def _walk(node, prefix: str, out: Dict[str, Any]) -> None:
 def _array(leaf) -> np.ndarray:
     if isinstance(leaf, list):                  # a segment's layers
         return np.stack([_array(x) for x in leaf])
-    if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+    if isinstance(leaf, torch.Tensor):         # bfloat16 widened (exact):
+        leaf = leaf.detach().cpu()             # the restore casts it back
+        return (leaf.float() if leaf.dtype == torch.bfloat16
+                else leaf).numpy()
     if isinstance(leaf, (int, np.integer)):
         return np.asarray(leaf, np.int32)
     return np.asarray(leaf)

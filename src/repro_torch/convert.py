@@ -465,12 +465,20 @@ def _flatten(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
-def _tensor(flat, key: str, shape, device) -> torch.Tensor:
+def _tensor(flat, key: str, shape, device,
+            dtype=torch.float32) -> torch.Tensor:
     arr = np.asarray(flat[key], dtype=np.float32)
     if tuple(arr.shape) != tuple(shape):
         raise ValueError(f"{key}: shape {arr.shape} does not fit the "
                          f"config's {tuple(shape)}")
-    return torch.tensor(arr, device=device)
+    return _cast(torch.tensor(arr), device, dtype)
+
+
+def _cast(t: torch.Tensor, device, dtype) -> torch.Tensor:
+    """A float32 host tensor in ``dtype`` on ``device``: the cast (to
+    nearest even, as JAX's ``astype``) is made on the host, so a bfloat16
+    leaf never occupies the card in float32."""
+    return t.to(dtype).to(device)
 
 
 def _lm_tree(cfg: ModelConfig, top_leaf, layer_leaf) -> dict:
@@ -511,7 +519,10 @@ def lm_params_shape(cfg: ModelConfig) -> dict:
 def lm_params_from_numpy(flat: Dict[str, np.ndarray], cfg: ModelConfig, *,
                          device=None, mesh=None, specs=None) -> dict:
     """Reference path-keyed LM arrays -> the port's parameters on
-    ``device`` (cuda unless ``device="cpu"``): ``embed``, ``final_norm``,
+    ``device`` (cuda unless ``device="cpu"``), each in ``cfg.param_dtype``
+    (the arrays are float32, or the reference's bfloat16 leaves widened to
+    float32, which is exact; the cast to bfloat16 rounds to nearest even,
+    as JAX's ``astype``): ``embed``, ``final_norm``,
     ``head`` (untied only) and ``segments``, a list of per-layer dicts for
     each segment; an encoder-decoder's ``encoder`` (a list of per-layer
     dicts) and ``enc_final_norm``; the MTP head's ``mtp``.
@@ -524,16 +535,17 @@ def lm_params_from_numpy(flat: Dict[str, np.ndarray], cfg: ModelConfig, *,
     in one host's memory."""
     check_supported(cfg)
     device = resolve_device(device)
+    dtype = getattr(torch, cfg.param_dtype)
     if mesh is None:
         stacked: dict = {}
 
         def layer(key, shape, j):
             if key not in stacked:
-                stacked[key] = _tensor(flat, key, shape, device)
+                stacked[key] = _tensor(flat, key, shape, device, dtype)
             return stacked[key][j]
 
-        return _lm_tree(cfg, lambda key, shape: _tensor(flat, key, shape,
-                                                        device), layer)
+        return _lm_tree(cfg, lambda key, shape: _tensor(
+            flat, key, shape, device, dtype), layer)
     from repro_torch.distributed import sharding as shd
     if specs is None:
         specs = shd.param_specs(lm_params_shape(cfg), cfg, mesh)
@@ -545,8 +557,8 @@ def lm_params_from_numpy(flat: Dict[str, np.ndarray], cfg: ModelConfig, *,
                              f"config's {tuple(shape)}")
         local = np.ascontiguousarray(
             arr[shd.local_shard(shape, spec, mesh)], dtype=np.float32)
-        return shd.from_shard(torch.tensor(local, device=device), shape,
-                              spec, mesh)
+        return shd.from_shard(_cast(torch.tensor(local), device, dtype),
+                              shape, spec, mesh)
 
     def top(key, shape):
         return shard(key, shape, flat[key], spec_of[key])
@@ -615,20 +627,27 @@ def mmap_npz(path: str) -> Dict[str, np.ndarray]:
 def lm_params_to_numpy(params: dict, cfg: ModelConfig
                        ) -> Dict[str, np.ndarray]:
     """The port's LM parameters -> reference path-keyed arrays, each block
-    array stacked over its segment's (or the encoder's) layers."""
+    array stacked over its segment's (or the encoder's) layers; a bfloat16
+    leaf widened to float32 (exact: numpy has no bfloat16)."""
     stacks = [(f"segments/{s}", layers)
               for s, layers in enumerate(params["segments"])]
     if "encoder" in params:
         stacks.append(("encoder", params["encoder"]))
     top = {k: v for k, v in params.items()
            if k not in ("segments", "encoder")}
-    flat = {k: t.detach().cpu().numpy() for k, t in _flatten(top).items()}
+    flat = {k: _numpy(t) for k, t in _flatten(top).items()}
     for prefix, layers in stacks:
         per_layer = [_flatten(bp) for bp in layers]
         for key in per_layer[0]:
             flat[f"{prefix}/{key}"] = np.stack(
-                [pl[key].detach().cpu().numpy() for pl in per_layer])
+                [_numpy(pl[key]) for pl in per_layer])
     return flat
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy, bfloat16 widened to float32 (exact)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def init_numpy_lm_params(cfg: ModelConfig, seed: int

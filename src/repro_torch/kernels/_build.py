@@ -82,6 +82,23 @@ _SIGNATURES = {
     # partials, B, T, di, N, device, stream
     "rt_selective_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _P, _I, _I, _I, _I, _I, _P),
+    # the LM kernels' entries with dtype codes (float32 or bfloat16): the
+    # float32 entry's arguments and, before the device, rmsnorm's mask (1 x,
+    # 2 scale), flash's bf16 flag, the scan's mask (1 decay, 2 inp, 4 c,
+    # 8 h0); the flash backward also takes the float32 accumulators dk32,
+    # dv32 after dv
+    "rt_rmsnorm_dt": (_P, _P, _P, _L, _I, _F, _I, _I, _P),
+    "rt_rmsnorm_bwd_dt": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _I, _I,
+                          _P),
+    "rt_flash_attention_dt": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _F, _I, _I, _P),
+    "rt_flash_attention_bwd_dt": (_P, _P, _P, _P, _P, _P, _P, _L, _P, _P,
+                                  _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _F, _I, _I, _I, _I, _P),
+    "rt_selective_scan_dt": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _P),
+    "rt_selective_scan_bwd_dt": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None

@@ -13,7 +13,11 @@ whatever implements an op (the kernel, its plain version or a fake rule).
   is seen by query ``qpos`` where ``kpos < Tk``, ``kpos <= qpos``
   (causal) and ``kpos > qpos - window`` (window > 0);
 * rmsnorm, the scan and their backwards: their elementwise FLOPs;
-* bytes: each input read once and each output written once (float32).
+* bytes: each input read once and each output written once, each at its
+  own element size: the ``*_bytes`` functions take the inputs' sizes in
+  bytes (4 by default, float32; 2 for bfloat16), outputs at their inputs'
+  sizes, and the float32 ones (flash's log-sum-exp, the scan's y, h_last
+  and its output gradients) at 4.
 """
 from __future__ import annotations
 
@@ -53,11 +57,12 @@ def flash_flops(q_shape, k_shape, v_shape, causal, window) -> int:
         q_shape, k_shape, causal, window)
 
 
-def flash_bytes(q_shape, k_shape, v_shape) -> int:
-    """q, k, v read; out (q's shape) and lse (B, Hq, Tq) written."""
+def flash_bytes(q_shape, k_shape, v_shape, size: int = F32) -> int:
+    """q, k, v read and out (q's shape) written at ``size`` bytes an
+    element; lse (B, Hq, Tq) written in float32."""
     B, Tq, Hq, _ = q_shape
-    return F32 * (2 * _numel(q_shape) + _numel(k_shape) + _numel(v_shape)
-                  + B * Hq * Tq)
+    return (size * (2 * _numel(q_shape) + _numel(k_shape) + _numel(v_shape))
+            + F32 * B * Hq * Tq)
 
 
 def flash_bwd_flops(q_shape, k_shape, causal, window) -> int:
@@ -65,10 +70,12 @@ def flash_bwd_flops(q_shape, k_shape, causal, window) -> int:
                                                   window)
 
 
-def flash_bwd_bytes(q_shape, k_shape) -> int:
-    """q, k, v, o, lse, do read; dq, dk, dv written."""
+def flash_bwd_bytes(q_shape, k_shape, size: int = F32) -> int:
+    """q, k, v, o, lse, do read; dq, dk, dv written: the q- and k-shaped
+    terms at ``size`` bytes an element, lse in float32."""
     B, Tq, Hq, _ = q_shape
-    return F32 * (5 * _numel(q_shape) + 4 * _numel(k_shape) + B * Hq * Tq)
+    return (size * (5 * _numel(q_shape) + 4 * _numel(k_shape))
+            + F32 * B * Hq * Tq)
 
 
 def rmsnorm_flops(x_shape) -> int:
@@ -76,8 +83,9 @@ def rmsnorm_flops(x_shape) -> int:
     return 4 * _numel(x_shape)
 
 
-def rmsnorm_bytes(x_shape) -> int:
-    return F32 * (2 * _numel(x_shape) + int(x_shape[-1]))
+def rmsnorm_bytes(x_shape, x_size: int = F32, s_size: int = F32) -> int:
+    """x read and out written at x's size, scale read at its own."""
+    return x_size * 2 * _numel(x_shape) + s_size * int(x_shape[-1])
 
 
 def rmsnorm_bwd_flops(x_shape) -> int:
@@ -86,9 +94,10 @@ def rmsnorm_bwd_flops(x_shape) -> int:
     return 8 * _numel(x_shape)
 
 
-def rmsnorm_bwd_bytes(x_shape) -> int:
-    """x, g, scale read; dx, dscale written."""
-    return F32 * (3 * _numel(x_shape) + 2 * int(x_shape[-1]))
+def rmsnorm_bwd_bytes(x_shape, x_size: int = F32, s_size: int = F32) -> int:
+    """x, g, scale read; dx, dscale written: x, g and dx at x's size,
+    scale and dscale at scale's."""
+    return x_size * 3 * _numel(x_shape) + s_size * 2 * int(x_shape[-1])
 
 
 def scan_flops(decay_shape) -> int:
@@ -97,11 +106,13 @@ def scan_flops(decay_shape) -> int:
     return 4 * _numel(decay_shape)
 
 
-def scan_bytes(decay_shape) -> int:
-    """decay, inp, c, h0 read; y, h_last written."""
+def scan_bytes(decay_shape, sizes=(F32, F32, F32, F32)) -> int:
+    """decay, inp, c, h0 read at their ``sizes``; y, h_last written in
+    float32."""
     B, T, di, N = (int(s) for s in decay_shape)
-    return F32 * (2 * B * T * di * N + B * T * N + 2 * B * di * N
-                  + B * T * di)
+    sd, si, sc, sh = sizes
+    return ((sd + si) * B * T * di * N + sc * B * T * N + sh * B * di * N
+            + F32 * (B * di * N + B * T * di))
 
 
 def scan_bwd_flops(decay_shape) -> int:
@@ -110,9 +121,10 @@ def scan_bwd_flops(decay_shape) -> int:
     return 8 * _numel(decay_shape)
 
 
-def scan_bwd_bytes(decay_shape) -> int:
-    """decay, inp, c, h0, gy, gh read; d_decay, d_inp, dc, dh0
-    written."""
+def scan_bwd_bytes(decay_shape, sizes=(F32, F32, F32, F32)) -> int:
+    """decay, inp, c, h0 read and their gradients written at their
+    ``sizes``; gy, gh read in float32."""
     B, T, di, N = (int(s) for s in decay_shape)
-    return F32 * (4 * B * T * di * N + 2 * B * T * N + 3 * B * di * N
-                  + B * T * di)
+    sd, si, sc, sh = sizes
+    return (2 * ((sd + si) * B * T * di * N + sc * B * T * N
+                 + sh * B * di * N) + F32 * (B * di * N + B * T * di))

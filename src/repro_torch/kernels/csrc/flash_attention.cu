@@ -1,6 +1,6 @@
 // Causal / sliding-window attention with an online softmax over KV tiles
-// (flash attention), float32 in and out, GQA by head index, its two
-// products on TF32 tensor cores with a 3-pass split that keeps FP32
+// (flash attention), float32 or bfloat16 in and out, GQA by head index, its
+// two products on TF32 tensor cores with a 3-pass split that keeps FP32
 // accuracy.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::
@@ -76,7 +76,7 @@
 //    log-sum-exp m + log(l) of its scaled scores is stored there for the
 //    backward (flash_attention_bwd.cu); the output is the same bits with or
 //    without it (serving passes null).
-//  * Float32 only, D of 64, 96, 128, 192 or 256: 64 and 128 for the smoke
+//  * D of 64, 96, 128, 192 or 256: 64 and 128 for the smoke
 //    configs, qwen3 and the rest; 256 for gemma-7b; 96 and 192 for MLA's
 //    q/k widths (minicpm3-4b's 64 + 32 RoPE, deepseek-v3's 128 + 64), whose
 //    narrower v (64, 128) the caller pads with zero columns. Every loop over
@@ -86,11 +86,25 @@
 //    is 96 registers a thread at D = 192 (o[24][4]) and 128 at D = 256
 //    (o[32][4]). Other head dims up to 256 reach the kernel padded with zero
 //    columns to the next of these (nn/attention.py::attend). The backward
-//    (flash_attention_bwd.cu) takes 64 and 128 only. ROADMAP lists bf16 and
-//    the backward's other D as open. wgmma fed by TMA, the full TF32 rate,
-//    is a later step.
+//    (flash_attention_bwd.cu) takes the same five. wgmma fed by TMA, the
+//    full TF32 rate, is a later step.
+//  * dtypes, as the TPU kernel's: q, k and v of one type, float32 or
+//    bfloat16, the output in it, rounded once from float; lse is float32
+//    either way. At bf16 the K and V tiles are staged as bf16 (half the
+//    cp.async bytes and their shared memory; rows of D + 8 elements, so
+//    both fragment reads stay in distinct banks) and widened as fragments
+//    are formed. q is widened and scaled in float32, as the TPU kernel
+//    scales it, and P is float32, so K and V are the only operands of
+//    bf16 origin: a bf16 value is exact in TF32, its split's low part is
+//    0, and each product drops its a_hi * b_lo pass (two mmas, not three).
+//    The tile schedule and every float operation are the float32
+//    instance's (an mma that adds only zero products leaves its
+//    accumulator as it was), so the bf16 output is the float32 instance's
+//    output on the widened inputs, rounded once, and lse is the same bits
+//    (chip_smoke.py checks both).
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
 #include "launch.cuh"
 #include "tf32x3.cuh"
 
@@ -105,14 +119,17 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int NS = BK / 8;               // 8-key steps of a tile
 constexpr float kNegInf = -1e30f;
 
-template <int D>
+// the shared memory of K and V elements of type T
+template <int D, typename T = float>
 struct Tile {
-  static constexpr int QS = D + 8;       // row stride of Q and K (floats)
-  static constexpr int VS = D + 4;       // row stride of V
+  static constexpr int QS = D + 8;       // row stride of Q (floats) and K
+  static constexpr int VS = dt::kBf16<T> ? D + 8 : D + 4;   // of V
   static constexpr int kQ = BQ * QS;
   static constexpr int kK = BK * QS;     // one stage
   static constexpr int kV = BK * VS;
-  static constexpr size_t bytes = sizeof(float) * (kQ + 2 * kK + 2 * kV);
+  static constexpr int kChunk = 16 / sizeof(T);   // elements a cp.async
+  static constexpr size_t bytes =
+      sizeof(float) * kQ + sizeof(T) * (2 * kK + 2 * kV);
 };
 
 using tf32x3::cp_async16;
@@ -131,20 +148,41 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <int D>
+// the TF32 bits of an element read as a B operand: at bf16 the value
+// itself (exact in TF32, its low part 0), at float32 its split
+__device__ __forceinline__ void b_split(float x, uint32_t& hi, uint32_t& lo) {
+  split(x, hi, lo);
+}
+__device__ __forceinline__ void b_split(dt::bf16 x, uint32_t& hi,
+                                        uint32_t& lo) {
+  hi = __float_as_uint(__bfloat162float(x));
+  lo = 0;
+}
+
+// two consecutive elements as float2
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const dt::bf16* p) {
+  return dt::unpack2(*reinterpret_cast<const uint32_t*>(p));
+}
+
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-    flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out,
+    flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, int Hq, int Tq, int Tk,
                  int q_per_kv, int n_bh, int n_qt,
                  int causal, int window, float scale) {
-  using L = Tile<D>;
+  using L = Tile<D, T>;
+  constexpr bool kB = dt::kBf16<T>;      // drop the b_lo passes
   constexpr int D4 = D / 4;
   constexpr int NT = D / 8;              // 8-column output tiles
+  constexpr int DC = D / L::kChunk;      // cp.async chunks a row
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                      // (BQ, QS), q * scale
-  float* Ks = Qs + L::kQ;                // 2 x (BK, QS)
-  float* Vs = Ks + 2 * L::kK;            // 2 x (BK, VS)
+  T* Ks = reinterpret_cast<T*>(Qs + L::kQ);   // 2 x (BK, QS)
+  T* Vs = Ks + 2 * L::kK;                // 2 x (BK, VS)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // mma group and lane in group
@@ -162,19 +200,22 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int kt_end = last_key < 0 ? -1 : last_key / BK;   // inclusive
 
   const long long kv_row = static_cast<long long>(Hkv) * D;
-  const float* kbase = k + (static_cast<long long>(b) * Tk * Hkv + hk) * D;
-  const float* vbase = v + (static_cast<long long>(b) * Tk * Hkv + hk) * D;
+  const T* kbase = k + (static_cast<long long>(b) * Tk * Hkv + hk) * D;
+  const T* vbase = v + (static_cast<long long>(b) * Tk * Hkv + hk) * D;
   auto load_tile = [&](int kt, int stage) {
-    float* ks = Ks + stage * L::kK;
-    float* vs = Vs + stage * L::kV;
+    T* ks = Ks + stage * L::kK;
+    T* vs = Vs + stage * L::kV;
 #pragma unroll
-    for (int i = 0; i < BK * D4 / kThreads; ++i) {
+    for (int i = 0; i < BK * DC / kThreads; ++i) {
       const int idx = tid + i * kThreads;
-      const int r = idx / D4, c = (idx - r * D4) * 4, key = kt * BK + r;
+      const int r = idx / DC, c = (idx - r * DC) * L::kChunk;
+      const int key = kt * BK + r;
       const bool ok = key < Tk;
       const long long off = ok ? key * kv_row + c : 0;
-      cp_async16(ks + r * L::QS + c, kbase + off, ok);
-      cp_async16(vs + r * L::VS + c, vbase + off, ok);
+      cp_async16(reinterpret_cast<float*>(ks + r * L::QS + c),
+                 reinterpret_cast<const float*>(kbase + off), ok);
+      cp_async16(reinterpret_cast<float*>(vs + r * L::VS + c),
+                 reinterpret_cast<const float*>(vbase + off), ok);
     }
   };
   if (kt_begin <= kt_end) load_tile(kt_begin, 0);
@@ -185,8 +226,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int r = idx / D4, c = (idx - r * D4) * 4, tq = q0 + r;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (tq < Tq)
-      val = *reinterpret_cast<const float4*>(
-          q + ((static_cast<long long>(b) * Tq + tq) * Hq + h) * D + c);
+      val = dt::as_f4(*reinterpret_cast<const typename dt::Vec4<T>::type*>(
+          q + ((static_cast<long long>(b) * Tq + tq) * Hq + h) * D + c));
     *reinterpret_cast<float4*>(Qs + r * L::QS + c) =
         make_float4(val.x * scale, val.y * scale, val.z * scale,
                     val.w * scale);
@@ -218,7 +259,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int j = 0; j < NS; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = s2[j][e] = 0.f;
-      const float* kb = Ks + stage * L::kK + g * L::QS + 2 * t;
+      const T* kb = Ks + stage * L::kK + g * L::QS + 2 * t;
 #pragma unroll
       for (int kk = 0; kk < D / 8; ++kk) {
         const float2 x0 = *reinterpret_cast<const float2*>(qa + 8 * kk);
@@ -231,13 +272,12 @@ __global__ void __launch_bounds__(kThreads, 2)
         split(x1.y, ah[3], al[3]);
 #pragma unroll
         for (int j = 0; j < NS; ++j) {
-          const float2 y =
-              *reinterpret_cast<const float2*>(kb + 8 * j * L::QS + 8 * kk);
+          const float2 y = load2(kb + 8 * j * L::QS + 8 * kk);
           uint32_t bh0, bl0, bh1, bl1;
-          split(y.x, bh0, bl0);
+          split(y.x, bh0, bl0);          // at bf16 bl0 = bl1 = 0
           split(y.y, bh1, bl1);
           mma(s2[j], al, bh0, bh1);
-          mma(s2[j], ah, bl0, bl1);
+          if constexpr (!kB) mma(s2[j], ah, bl0, bl1);
           mma(s[j], ah, bh0, bh1);
         }
       }
@@ -294,7 +334,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
 
       // O += P V: the score accumulators are P's A fragment as they lie
-      const float* vb = Vs + stage * L::kV + 2 * t * L::VS + g;
+      const T* vb = Vs + stage * L::kV + 2 * t * L::VS + g;
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
         uint32_t ah[4], al[4];
@@ -302,14 +342,14 @@ __global__ void __launch_bounds__(kThreads, 2)
         split(s[j][2], ah[1], al[1]);
         split(s[j][1], ah[2], al[2]);
         split(s[j][3], ah[3], al[3]);
-        const float* vj = vb + 8 * j * L::VS;
+        const T* vj = vb + 8 * j * L::VS;
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           uint32_t bh0, bl0, bh1, bl1;
-          split(vj[8 * n], bh0, bl0);
-          split(vj[L::VS + 8 * n], bh1, bl1);
+          b_split(vj[8 * n], bh0, bl0);
+          b_split(vj[L::VS + 8 * n], bh1, bl1);
           mma(o[n], al, bh0, bh1);
-          mma(o[n], ah, bl0, bl1);
+          if constexpr (!kB) mma(o[n], ah, bl0, bl1);
           mma(o[n], ah, bh0, bh1);
         }
       }
@@ -327,7 +367,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();                     // no thread still writes Qs
     for (int c = tid; c < D; c += kThreads) {
       float acc = 0.f;
-      for (int key = 0; key < Tk; ++key) acc += vbase[key * kv_row + c];
+      for (int key = 0; key < Tk; ++key)
+        acc += dt::to_f(vbase[key * kv_row + c]);
       mean[c] = acc / static_cast<float>(Tk);
     }
     __syncthreads();
@@ -345,8 +386,14 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (r1 < Tq) lrow[r1] = blind1 ? inf : m[1] + logf(l1);
   }
   const long long row_stride = static_cast<long long>(Hq) * D;
-  float* o0 = out + ((static_cast<long long>(b) * Tq + r0) * Hq + h) * D +
-              2 * t;
+  T* o0 = out + ((static_cast<long long>(b) * Tq + r0) * Hq + h) * D + 2 * t;
+  // two output values, rounded once to T
+  auto put = [](T* p, float2 x) {
+    if constexpr (kB)
+      *reinterpret_cast<uint32_t*>(p) = dt::pack2(x.x, x.y);
+    else
+      *reinterpret_cast<float2*>(p) = x;
+  };
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     const float2 mv = blind0 || blind1
@@ -354,27 +401,28 @@ __global__ void __launch_bounds__(kThreads, 2)
                                                              2 * t)
                           : make_float2(0.f, 0.f);
     if (r0 < Tq)
-      *reinterpret_cast<float2*>(o0 + 8 * n) =
-          blind0 ? mv : make_float2(o[n][0] * inv0, o[n][1] * inv0);
+      put(o0 + 8 * n,
+          blind0 ? mv : make_float2(o[n][0] * inv0, o[n][1] * inv0));
     if (r1 < Tq)
-      *reinterpret_cast<float2*>(o0 + 8 * row_stride + 8 * n) =
-          blind1 ? mv : make_float2(o[n][2] * inv1, o[n][3] * inv1);
+      put(o0 + 8 * row_stride + 8 * n,
+          blind1 ? mv : make_float2(o[n][2] * inv1, o[n][3] * inv1));
   }
 }
 
-template <int D>
+template <int D, typename T>
 struct SmemAttr {};
 
-template <int D>
-cudaError_t launch(const float* q, const float* k, const float* v, float* out,
+template <int D, typename T>
+cudaError_t launch(const T* q, const T* k, const T* v, T* out,
                    float* lse, int B, int Tq, int Tk, int Hq, int Hkv, int causal,
                    int window, float scale, int device, cudaStream_t st) {
-  auto kernel = flash_kernel<D>;
+  using L = Tile<D, T>;
+  auto kernel = flash_kernel<D, T>;
   // the shared-memory attributes, once per device
-  cudaError_t err = rt::once_per_device<SmemAttr<D>>(device, [kernel] {
+  cudaError_t err = rt::once_per_device<SmemAttr<D, T>>(device, [kernel] {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(Tile<D>::bytes));
+        static_cast<int>(L::bytes));
     if (e != cudaSuccess) return e;
     return cudaFuncSetAttribute(kernel,
                                 cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -387,7 +435,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out,
   const long long blocks = n_bh * n_qt;
   if (n_bh > 0x7fffffffLL || blocks > 0x7fffffffLL)
     return cudaErrorInvalidConfiguration;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, Tile<D>::bytes, st>>>(
+  kernel<<<static_cast<unsigned>(blocks), kThreads, L::bytes, st>>>(
       q, k, v, out, lse, Hq, Tq, Tk, Hq / Hkv, static_cast<int>(n_bh), n_qt,
       causal, window, scale);
   return cudaGetLastError();
@@ -397,7 +445,56 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
 }
 
+template <typename T>
+cudaError_t dispatch(const T* q, const T* k, const T* v, T* out, float* lse,
+                     int B, int Tq, int Tk, int Hq, int Hkv, int D,
+                     int causal, int window, float scale, int device,
+                     cudaStream_t st) {
+  switch (D) {
+#define RT_FLASH_D(W)                                                        \
+  case W:                                                                   \
+    return launch<W, T>(q, k, v, out, lse, B, Tq, Tk, Hq, Hkv, causal,      \
+                        window, scale, device, st);
+    RT_FLASH_D(64)
+    RT_FLASH_D(96)
+    RT_FLASH_D(128)
+    RT_FLASH_D(192)
+    RT_FLASH_D(256)
+#undef RT_FLASH_D
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// q, out (B, Tq, Hq, D) and k, v (B, Tk, Hkv, D), contiguous, float32
+// (bf16 0) or bfloat16 (bf16 1); lse (B, Hq, Tq) float32, or null when the
+// caller needs no log-sum-exp.
+extern "C" int rt_flash_attention_dt(const void* q, const void* k,
+                                     const void* v, void* out, float* lse,
+                                     int B, int Tq, int Tk, int Hq, int Hkv,
+                                     int D, int causal, int window,
+                                     float scale, int bf16, int device,
+                                     void* stream) {
+  if (B < 1 || Tq < 1 || Tk < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 ||
+      window < 0 || (bf16 != 0 && bf16 != 1))
+    return cudaErrorInvalidValue;
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
+    return cudaErrorMisalignedAddress;
+  cudaError_t err = rt::use_device(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    using dt::bf16;
+    return dispatch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                    static_cast<const bf16*>(v), static_cast<bf16*>(out),
+                    lse, B, Tq, Tk, Hq, Hkv, D, causal, window, scale,
+                    device, st);
+  }
+  return dispatch(static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<float*>(out), lse,
+                  B, Tq, Tk, Hq, Hkv, D, causal, window, scale, device, st);
+}
 
 // q, out (B, Tq, Hq, D) and k, v (B, Tk, Hkv, D), contiguous float32; lse
 // (B, Hq, Tq) float32, or null when the caller needs no log-sum-exp.
@@ -407,28 +504,6 @@ extern "C" int rt_flash_attention(const float* q, const float* k,
                                   int Tk, int Hq, int Hkv, int D, int causal,
                                   int window, float scale, int device,
                                   void* stream) {
-  if (B < 1 || Tq < 1 || Tk < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 ||
-      window < 0)
-    return cudaErrorInvalidValue;
-  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
-    return cudaErrorMisalignedAddress;
-  cudaError_t err = rt::use_device(device);
-  if (err != cudaSuccess) return err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch<64>(q, k, v, out, lse, B, Tq, Tk, Hq, Hkv, causal, window,
-                      scale, device, st);
-  if (D == 96)
-    return launch<96>(q, k, v, out, lse, B, Tq, Tk, Hq, Hkv, causal, window,
-                      scale, device, st);
-  if (D == 128)
-    return launch<128>(q, k, v, out, lse, B, Tq, Tk, Hq, Hkv, causal, window,
-                       scale, device, st);
-  if (D == 192)
-    return launch<192>(q, k, v, out, lse, B, Tq, Tk, Hq, Hkv, causal, window,
-                       scale, device, st);
-  if (D == 256)
-    return launch<256>(q, k, v, out, lse, B, Tq, Tk, Hq, Hkv, causal, window,
-                       scale, device, st);
-  return cudaErrorInvalidValue;
+  return rt_flash_attention_dt(q, k, v, out, lse, B, Tq, Tk, Hq, Hkv, D,
+                               causal, window, scale, 0, device, stream);
 }

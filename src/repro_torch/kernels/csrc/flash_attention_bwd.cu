@@ -1,6 +1,6 @@
-// Backward of causal / sliding-window flash attention, float32, GQA by head
-// index: dq, dk and dv from q, k, v, the forward's output o and its
-// per-row log-sum-exp lse, and the output gradient do.
+// Backward of causal / sliding-window flash attention, float32 or bfloat16,
+// GQA by head index: dq, dk and dv from q, k, v, the forward's output o and
+// its per-row log-sum-exp lse, and the output gradient do.
 //
 // The TPU package has no backward kernel: its LM calls plain jnp attention
 // and XLA differentiates it. This is the same gradient taken by the flash
@@ -95,10 +95,29 @@
 //    (8 warps) an SM by registers. Both are bound by shared-memory bytes a product reads as
 //    much as by the tensor pipe: a 16-row warp tile reads ~300 B of planes
 //    an mma, and the 227 KB budget leaves no room for wider.
+//  * dtypes: q, k, v, o and do of one type, float32 or bfloat16 (lse and
+//    the scratch float32); dq, dk and dv in it, each accumulated in float
+//    and rounded once when stored. At bf16 the streamed tiles (Q and dO in
+//    dkdv, K in dq) land raw as bf16 by 16-byte cp.async (8 elements a
+//    copy) and are widened into their hi planes; the resident K and V are
+//    staged as bf16 and widened into theirs. Every operand of bf16 origin
+//    is exact in TF32, so its lo plane is 0 and is neither written nor
+//    read: S^T = K Q^T and dP^T = V dO^T (both operands bf16) take one
+//    pass, dV += P^T dO, dK += dS^T Q and dQ += dS K (B of bf16 origin)
+//    take two, dropping a_hi * b_lo. Everything else -- the tile schedule,
+//    the float work, the fixed summation orders -- is the float32
+//    instance's, so the bf16 gradients are the float32 instance's on the
+//    widened inputs, rounded once (chip_smoke.py checks it). Where a
+//    key's dK or dV is not final in one launch (ranges of query rows; dV
+//    when blind rows add to it after), the bf16 launch keeps it in float32
+//    accumulators (dk32, dv32) that the caller provides, and the launch or
+//    the blind kernel that finishes it rounds it once; at float32 those
+//    accumulators are dk and dv themselves.
 // Left: wgmma fed by TMA for all of it (ROADMAP Queue 2), and a warp tile
 // wider than 16 rows to cut the shared-memory bytes a product reads.
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
 #include "launch.cuh"
 #include "tf32x3.cuh"
 
@@ -176,20 +195,25 @@ __device__ __forceinline__ void group_sync(int group) {
   asm volatile("bar.sync %0, 128;" ::"r"(group + 1) : "memory");
 }
 
+// a staging tile's row stride in elements: D + 4 floats, D + 8 bf16 (whole
+// 16-byte chunks either way)
+template <int D, typename T>
+constexpr int kStageRow = dt::kBf16<T> ? D + 8 : D + 4;
+
 // start copying rows [row0, row0 + KR) of a (B, T, H, D) tensor at head h
-// into a (KR, D + 4) staging tile; rows past T (the tensor's own length) as
-// zeros
-template <int D, int KR, int NT>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int b, int row0, int T, int H,
-                                           int h) {
-  constexpr int C = D / 4;
+// into a (KR, kStageRow) staging tile; rows past T (the tensor's own
+// length) as zeros
+template <int D, int KR, int NT, typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int b,
+                                           int row0, int T_, int H, int h) {
+  constexpr int E = 16 / sizeof(T), C = D / E, SS = kStageRow<D, T>;
   for (int i = threadIdx.x; i < KR * C; i += NT) {
     const int r = i / C, c = i - r * C, row = row0 + r;
-    const bool ok = row < T;
+    const bool ok = row < T_;
     const long long off =
-        ok ? ((static_cast<long long>(b) * T + row) * H + h) * D + 4 * c : 0;
-    cp_async16(dst + r * (D + 4) + 4 * c, src + off, ok);
+        ok ? ((static_cast<long long>(b) * T_ + row) * H + h) * D + E * c : 0;
+    cp_async16(reinterpret_cast<float*>(dst + r * SS + E * c),
+               reinterpret_cast<const float*>(src + off), ok);
   }
 }
 
@@ -198,46 +222,78 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
 // ((w * D / 8 + kk) * 32 + lane) * 4, holding rows 16w + g and 16w + g + 8
 // at columns 8kk + 2t and 8kk + 2t + 1 (lane = 4g + t): the contraction
 // index t of the mma taken as column 2t, t + 4 as 2t + 1
-template <int D, int KR, int NT>
-__device__ __forceinline__ void to_fragments(const float* st, float* hi,
+// (at bf16 only the hi plane: the values themselves, their lo 0)
+template <int D, int KR, int NT, typename T>
+__device__ __forceinline__ void to_fragments(const T* st, float* hi,
                                              float* lo) {
-  constexpr int KK = D / 8;
+  constexpr int KK = D / 8, SS = kStageRow<D, T>;
   for (int i = threadIdx.x; i < KR * D / 4; i += NT) {
     const int w = i / (KK * 32), kk = (i / 32) % KK, ln = i % 32;
     const int r = 16 * w + (ln >> 2), c = 8 * kk + 2 * (ln & 3);
-    const float x[4] = {st[r * (D + 4) + c], st[(r + 8) * (D + 4) + c],
-                        st[r * (D + 4) + c + 1],
-                        st[(r + 8) * (D + 4) + c + 1]};
+    const float x[4] = {dt::to_f(st[r * SS + c]),
+                        dt::to_f(st[(r + 8) * SS + c]),
+                        dt::to_f(st[r * SS + c + 1]),
+                        dt::to_f(st[(r + 8) * SS + c + 1])};
     uint32_t h[4], l[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) split(x[e], h[e], l[e]);
     reinterpret_cast<uint4*>(hi)[i] = make_uint4(h[0], h[1], h[2], h[3]);
-    reinterpret_cast<uint4*>(lo)[i] = make_uint4(l[0], l[1], l[2], l[3]);
+    if constexpr (!dt::kBf16<T>)
+      reinterpret_cast<uint4*>(lo)[i] = make_uint4(l[0], l[1], l[2], l[3]);
   }
 }
 
 // start copying rows [row0, row0 + SR) of a (B, T, H, D) tensor at head h
-// into a stream tile (chunks permuted); rows past T as zeros
-template <int D, int SR, int NT = 128>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int b, int row0, int T, int H,
-                                          int h, int gtid) {
-  constexpr int C = D / 4;
+// into a stream tile (float32: chunks permuted; bf16: rows in order, the
+// permutation made by split_tile); rows past T as zeros
+template <int D, int SR, int NT = 128, typename T = float>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int b,
+                                          int row0, int T_, int H, int h,
+                                          int gtid) {
+  if constexpr (dt::kBf16<T>) {
+    constexpr int C = D / 8;             // 8 elements a copy
+    for (int i = gtid; i < SR * C; i += NT) {
+      const int r = i / C, c = i - r * C, row = row0 + r;
+      const bool ok = row < T_;
+      const long long off =
+          ok ? ((static_cast<long long>(b) * T_ + row) * H + h) * D + 8 * c
+             : 0;
+      cp_async16(reinterpret_cast<float*>(dst + r * D + 8 * c),
+                 reinterpret_cast<const float*>(src + off), ok);
+    }
+  } else {
+    constexpr int C = D / 4;
 #pragma unroll
-  for (int n = 0; n < SR * C / NT; ++n) {
-    const int i = gtid + NT * n;
-    const int r = i / C, c = i - r * C, row = row0 + r;
-    const bool ok = row < T;
-    const long long off =
-        ok ? ((static_cast<long long>(b) * T + row) * H + h) * D + 4 * c : 0;
-    cp_async16(dst + r * D + ((c ^ swz(r & 7)) << 2), src + off, ok);
+    for (int n = 0; n < SR * C / NT; ++n) {
+      const int i = gtid + NT * n;
+      const int r = i / C, c = i - r * C, row = row0 + r;
+      const bool ok = row < T_;
+      const long long off =
+          ok ? ((static_cast<long long>(b) * T_ + row) * H + h) * D + 4 * c
+             : 0;
+      cp_async16(dst + r * D + ((c ^ swz(r & 7)) << 2), src + off, ok);
+    }
   }
 }
 
-// a raw stream tile -> its hi and lo planes, chunk by chunk in place
-template <int D, int SR, int NT = 128>
-__device__ __forceinline__ void split_tile(const float* raw, float* hi,
+// a raw stream tile -> its hi and lo planes, chunk by chunk in place (at
+// bf16: the hi plane, the widened values at the float32 layout's permuted
+// places; no lo)
+template <int D, int SR, int NT = 128, typename T = float>
+__device__ __forceinline__ void split_tile(const T* raw, float* hi,
                                            float* lo, int gtid) {
+  if constexpr (dt::kBf16<T>) {
+    constexpr int C = D / 4;
+#pragma unroll
+    for (int n = 0; n < SR * C / NT; ++n) {
+      const int i = gtid + NT * n;
+      const int r = i / C, c = i - r * C;
+      const float4 x =
+          dt::as_f4(*reinterpret_cast<const uint2*>(raw + r * D + 4 * c));
+      reinterpret_cast<float4*>(hi)[r * C + (c ^ swz(r & 7))] = x;
+    }
+    return;
+  }
 #pragma unroll
   for (int n = 0; n < SR * D / 4 / NT; ++n) {
     const int i = gtid + NT * n;
@@ -257,8 +313,9 @@ __device__ __forceinline__ void split_tile(const float* raw, float* hi,
 // warp's 16 resident rows (fragment planes), B and E the SR stream rows
 // (planes). Column n of n-tile j is stream row 8j + n/2 + 4 (n % 2). The
 // two small passes sum apart and are added after the loop, as in the
-// forward.
-template <int D, int NJ>
+// forward. kB: all four operands of bf16 origin, their lo planes 0: the
+// one pass a_hi * b_hi.
+template <int D, int NJ, bool kB>
 __device__ __forceinline__ void rows_by_stream(
     const float* Ah, const float* Al, const float* Bh, const float* Bl,
     const float* Ch, const float* Cl, const float* Eh, const float* El,
@@ -280,13 +337,25 @@ __device__ __forceinline__ void rows_by_stream(
       acc[j][e] = acc2[j][e] = bcc[j][e] = bcc2[j][e] = 0.f;
 #pragma unroll 8
   for (int kk = 0; kk < D / 8; ++kk) {
-    const uint4 h4 = ah[kk * 32], l4 = al[kk * 32];
-    const uint4 h5 = ch[kk * 32], l5 = cl[kk * 32];
+    const uint4 h4 = ah[kk * 32], h5 = ch[kk * 32];
     const uint32_t a_h[4] = {h4.x, h4.y, h4.z, h4.w};
-    const uint32_t a_l[4] = {l4.x, l4.y, l4.z, l4.w};
     const uint32_t c_h[4] = {h5.x, h5.y, h5.z, h5.w};
-    const uint32_t c_l[4] = {l5.x, l5.y, l5.z, l5.w};
     const int o = bo + ((8 * kk) ^ sw);      // chunk 2kk + t/2, permuted
+    if constexpr (kB) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float2 yh =
+            *reinterpret_cast<const float2*>(Bh + 8 * j * D + o);
+        const float2 zh =
+            *reinterpret_cast<const float2*>(Eh + 8 * j * D + o);
+        mma(acc[j], a_h, bits(yh.x), bits(yh.y));
+        mma(bcc[j], c_h, bits(zh.x), bits(zh.y));
+      }
+      continue;
+    }
+    const uint4 l4 = al[kk * 32], l5 = cl[kk * 32];
+    const uint32_t a_l[4] = {l4.x, l4.y, l4.z, l4.w};
+    const uint32_t c_l[4] = {l5.x, l5.y, l5.z, l5.w};
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const float2 yh = *reinterpret_cast<const float2*>(Bh + 8 * j * D + o);
@@ -301,13 +370,15 @@ __device__ __forceinline__ void rows_by_stream(
       mma(bcc[j], c_h, bits(zh.x), bits(zh.y));
     }
   }
+  if constexpr (!kB) {
 #pragma unroll
-  for (int j = 0; j < NJ; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      acc[j][e] += acc2[j][e];
-      bcc[j][e] += bcc2[j][e];
-    }
+      for (int e = 0; e < 4; ++e) {
+        acc[j][e] += acc2[j][e];
+        bcc[j][e] += bcc2[j][e];
+      }
+  }
 }
 
 // acc += A B over NK 8-row steps of a stream tile, three passes: A's hi
@@ -320,8 +391,8 @@ __device__ __forceinline__ void rows_by_stream(
 // which is then added to acc on the FP32 pipes: the mma's own additions
 // truncate, and over the thousands of rows that dK, dV and dQ sum, that
 // bias alone would take dV past the port's tolerance at the training
-// shape.
-template <int DC, int NK>
+// shape. kB: B of bf16 origin, its lo plane 0: the a_hi * b_lo pass goes.
+template <int DC, int NK, bool kB>
 __device__ __forceinline__ void frags_by_dims(const uint32_t (&xh)[NK][4],
                                               const uint32_t (&xl)[NK][4],
                                               const float* Bh,
@@ -343,10 +414,18 @@ __device__ __forceinline__ void frags_by_dims(const uint32_t (&xh)[NK][4],
     for (int s = 0; s < NK; ++s) {
       const float4 h0 = *reinterpret_cast<const float4*>(Bh + off0[s] + 32 * c);
       const float4 h1 = *reinterpret_cast<const float4*>(Bh + off1[s] + 32 * c);
-      const float4 l0 = *reinterpret_cast<const float4*>(Bl + off0[s] + 32 * c);
-      const float4 l1 = *reinterpret_cast<const float4*>(Bl + off1[s] + 32 * c);
       const float bh0[4] = {h0.x, h0.y, h0.z, h0.w};
       const float bh1[4] = {h1.x, h1.y, h1.z, h1.w};
+      if constexpr (kB) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          mma(part[i], xl[s], bits(bh0[i]), bits(bh1[i]));
+          mma(part[i], xh[s], bits(bh0[i]), bits(bh1[i]));
+        }
+        continue;
+      }
+      const float4 l0 = *reinterpret_cast<const float4*>(Bl + off0[s] + 32 * c);
+      const float4 l1 = *reinterpret_cast<const float4*>(Bl + off1[s] + 32 * c);
       const float bl0[4] = {l0.x, l0.y, l0.z, l0.w};
       const float bl1[4] = {l1.x, l1.y, l1.z, l1.w};
 #pragma unroll
@@ -367,7 +446,7 @@ __device__ __forceinline__ void frags_by_dims(const uint32_t (&xh)[NK][4],
 // rows_by_stream leaves (lane columns 2t and 2t + 1 of n-tile j are stream
 // rows 8j + t and 8j + t + 4), split here into A fragments; B's DC columns
 // from col0
-template <int D, int DC, int NJ>
+template <int D, int DC, int NJ, bool kB>
 __device__ __forceinline__ void rows_by_dims(const float (&x)[NJ][4],
                                              const float* Bh,
                                              const float* Bl, int col0,
@@ -384,7 +463,7 @@ __device__ __forceinline__ void rows_by_dims(const float (&x)[NJ][4],
     off0[j] = (8 * j + t) * D + ((g ^ swz(t)) << 2);
     off1[j] = (8 * j + t + 4) * D + ((g ^ swz(t + 4)) << 2);
   }
-  frags_by_dims<DC, NJ>(xh, xl, Bh, Bl, off0, off1, col0, acc);
+  frags_by_dims<DC, NJ, kB>(xh, xl, Bh, Bl, off0, off1, col0, acc);
 }
 
 // The dS scratch: 16 x 16 blocks (query block qb, key block kb) of each
@@ -421,21 +500,30 @@ __device__ __forceinline__ bool block_seen(int qb, int kb, int causal,
 }
 
 // row half hr (rows g, g + 8) of a (16, D) accumulator, times `mul`, into
-// a global row: a lane's 8 consecutive d at 32c + 8t
-template <int D>
-__device__ __forceinline__ void store_row(float* dst,
+// a global row of T: a lane's 8 consecutive d at 32c + 8t, rounded once
+template <int D, typename T = float>
+__device__ __forceinline__ void store_row(T* dst,
                                           const float (&acc)[D / 8][4],
                                           int hr, float mul) {
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int c = 0; c < D / 32; ++c) {
-    float4* p = reinterpret_cast<float4*>(dst + 32 * c + 8 * t);
     const int e = 2 * hr;
-    p[0] = make_float4(acc[4 * c][e] * mul, acc[4 * c + 1][e] * mul,
-                       acc[4 * c + 2][e] * mul, acc[4 * c + 3][e] * mul);
-    p[1] = make_float4(acc[4 * c][e + 1] * mul, acc[4 * c + 1][e + 1] * mul,
-                       acc[4 * c + 2][e + 1] * mul,
-                       acc[4 * c + 3][e + 1] * mul);
+    const float4 x = make_float4(acc[4 * c][e] * mul, acc[4 * c + 1][e] * mul,
+                                 acc[4 * c + 2][e] * mul,
+                                 acc[4 * c + 3][e] * mul);
+    const float4 y = make_float4(
+        acc[4 * c][e + 1] * mul, acc[4 * c + 1][e + 1] * mul,
+        acc[4 * c + 2][e + 1] * mul, acc[4 * c + 3][e + 1] * mul);
+    if constexpr (dt::kBf16<T>) {
+      const uint2 a = dt::from_f4<T>(x), b = dt::from_f4<T>(y);
+      *reinterpret_cast<uint4*>(dst + 32 * c + 8 * t) =
+          make_uint4(a.x, a.y, b.x, b.y);
+    } else {
+      float4* p = reinterpret_cast<float4*>(dst + 32 * c + 8 * t);
+      p[0] = x;
+      p[1] = y;
+    }
   }
 }
 
@@ -484,18 +572,21 @@ __device__ __forceinline__ void add_acc(const float* buf,
 // delta[(b, h, t)] = <do, o> of the (b, t, h) row: one warp a row, a
 // 4-column chunk a lane (and past D = 128 the lane's chunks summed in
 // order), T the query length
-template <int D>
+template <int D, typename TI>
 __global__ void __launch_bounds__(256)
-    flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dO,
+    flash_bwd_delta(const TI* __restrict__ o, const TI* __restrict__ dO,
                     float* __restrict__ delta, long long rows, int T,
                     int Hq) {
+  using V4 = typename dt::Vec4<TI>::type;
   const long long row =
       static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int lane = threadIdx.x & 31;
   const auto chunk = [&](int c) {
-    const float4 a = *reinterpret_cast<const float4*>(o + row * D + 4 * c);
-    const float4 g = *reinterpret_cast<const float4*>(dO + row * D + 4 * c);
+    const float4 a =
+        dt::as_f4(*reinterpret_cast<const V4*>(o + row * D + 4 * c));
+    const float4 g =
+        dt::as_f4(*reinterpret_cast<const V4*>(dO + row * D + 4 * c));
     return fmaf(a.w, g.w, fmaf(a.z, g.z, fmaf(a.y, g.y, a.x * g.x)));
   };
   float acc = 0.f;
@@ -517,21 +608,25 @@ __global__ void __launch_bounds__(256)
 // key, so each key's dV gains (1 / Tk) times the sum of those rows' dO over
 // the KV head's query heads; their dQ is 0 and they add nothing to dK (the
 // mask cuts the scores' gradient). One block a (b, KV head), a thread a
-// column; it runs after the last range's dkdv, on its dV.
-template <int D>
+// column; it runs after the last range's dkdv, on its dV: dv = dv32 + that,
+// rounded once (at float32 dv32 is dv).
+template <int D, typename TI>
 __global__ void __launch_bounds__(D)
-    flash_bwd_blind(const float* __restrict__ dO, float* __restrict__ dv,
+    flash_bwd_blind(const TI* __restrict__ dO, const float* dv32, TI* dv,
                     int Tq, int Tk, int Hq, int Hkv, int blind) {
   const int b = blockIdx.x / Hkv, hk = blockIdx.x - b * Hkv;
   const int q_per_kv = Hq / Hkv, c = threadIdx.x;
   float u = 0.f;
   for (int r = blind; r < Tq; ++r)
     for (int i = 0; i < q_per_kv; ++i)
-      u += dO[((static_cast<long long>(b) * Tq + r) * Hq + hk * q_per_kv +
-               i) * D + c];
+      u += dt::to_f(dO[((static_cast<long long>(b) * Tq + r) * Hq +
+                        hk * q_per_kv + i) * D + c]);
   u /= static_cast<float>(Tk);
-  for (int key = 0; key < Tk; ++key)
-    dv[((static_cast<long long>(b) * Tk + key) * Hkv + hk) * D + c] += u;
+  for (int key = 0; key < Tk; ++key) {
+    const long long at =
+        ((static_cast<long long>(b) * Tk + key) * Hkv + hk) * D + c;
+    dv[at] = dt::from_f<TI>(dv32[at] + u);
+  }
 }
 
 // the kr-key tiles a dkdv launch over the query rows [qbegin, qend) takes:
@@ -545,16 +640,21 @@ __host__ __device__ inline int dkdv_tiles(int Tq, int Tk, int causal,
 
 // R: the launch is one of several over ranges of query rows; without it
 // the range is all Tq and the range arithmetic folds away
-template <int D, bool R>
+// dk32, dv32: the float32 accumulators a key's sums wait in where this
+// launch does not finish them (an earlier or later range's, or dV's blind
+// rows: dv_acc); at float32 they are dk and dv (no __restrict__ on the
+// four: they alias there)
+template <int D, bool R, typename TI>
 __global__ void __launch_bounds__(Dkdv<D>::kThreads, 1)
-    flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ dO,
+    flash_bwd_dkdv(const TI* __restrict__ q, const TI* __restrict__ k,
+                   const TI* __restrict__ v, const TI* __restrict__ dO,
                    const float* __restrict__ lse,
-                   const float* __restrict__ delta, float* __restrict__ dk,
-                   float* __restrict__ dv, float* __restrict__ dsb, int Tq,
+                   const float* __restrict__ delta, TI* dk, TI* dv,
+                   float* dk32, float* dv32, float* __restrict__ dsb, int Tq,
                    int Tk, int Hq, int Hkv, int causal, int window,
-                   float scale, int qbegin, int qend) {
+                   float scale, int qbegin, int qend, int dv_acc) {
   using L = Dkdv<D>;
+  constexpr bool kB = dt::kBf16<TI>;
   constexpr int NG = L::NG, SR = kRows, NJ = SR / 8, KR = L::KR, DC = L::DC;
   extern __shared__ __align__(16) float smem[];
   float* Kh = smem;
@@ -592,16 +692,20 @@ __global__ void __launch_bounds__(Dkdv<D>::kThreads, 1)
   const long long ds_base = ds_block(qb0, 0, nb, causal);
 
   // K and V staged raw, then split once into fragment planes
-  stage_rows<D, KR, L::kThreads>(groups, k, b, k0, Tk, Hkv, hk);
-  stage_rows<D, KR, L::kThreads>(groups + L::kStage, v, b, k0, Tk, Hkv, hk);
+  TI* kst = reinterpret_cast<TI*>(groups);
+  TI* vst = reinterpret_cast<TI*>(groups + L::kStage);
+  stage_rows<D, KR, L::kThreads>(kst, k, b, k0, Tk, Hkv, hk);
+  stage_rows<D, KR, L::kThreads>(vst, v, b, k0, Tk, Hkv, hk);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  to_fragments<D, KR, L::kThreads>(groups, Kh, Kl);
-  to_fragments<D, KR, L::kThreads>(groups + L::kStage, Vh, Vl);
+  to_fragments<D, KR, L::kThreads>(kst, Kh, Kl);
+  to_fragments<D, KR, L::kThreads>(vst, Vh, Vl);
   __syncthreads();
 
   float* raw = groups + group * L::kGroup;  // raw Q, then raw dO
+  TI* raw_q = reinterpret_cast<TI*>(raw);
+  TI* raw_do = reinterpret_cast<TI*>(raw + L::kTile);
   float* rstat = raw + 2 * L::kTile;        // raw lse, delta
   float* stat = rstat + 2 * SR;             // this tile's lse, delta
   float* Qh = stat + 2 * SR;
@@ -613,8 +717,8 @@ __global__ void __launch_bounds__(Dkdv<D>::kThreads, 1)
   auto load = [&](int it) {
     const int h = hk * q_per_kv + it / per_head;
     const int q0 = (qt_begin + it % per_head) * SR;
-    load_tile<D, SR>(raw, q, b, q0, Tq, Hq, h, gtid);
-    load_tile<D, SR>(raw + L::kTile, dO, b, q0, Tq, Hq, h, gtid);
+    load_tile<D, SR>(raw_q, q, b, q0, Tq, Hq, h, gtid);
+    load_tile<D, SR>(raw_do, dO, b, q0, Tq, Hq, h, gtid);
     if (gtid < SR) {
       const bool ok = q0 + gtid < Tq;
       const long long i =
@@ -635,8 +739,8 @@ __global__ void __launch_bounds__(Dkdv<D>::kThreads, 1)
   for (int it = group; it < n_iter; it += NG) {
     cp_async_wait<0>();
     group_sync(group);                   // landed; the planes are free
-    split_tile<D, SR>(raw, Qh, Ql, gtid);
-    split_tile<D, SR>(raw + L::kTile, Oh, Ol, gtid);
+    split_tile<D, SR>(raw_q, Qh, Ql, gtid);
+    split_tile<D, SR>(raw_do, Oh, Ol, gtid);
     if (gtid < 2 * SR)                   // lse as lse2 (prob)
       stat[gtid] = gtid < SR ? rstat[gtid] * kLog2e : rstat[gtid];
     group_sync(group);
@@ -649,7 +753,7 @@ __global__ void __launch_bounds__(Dkdv<D>::kThreads, 1)
     // P^T = exp(S^T scale - lse), S^T = K Q^T: rows keys, columns queries;
     // dP^T = V dO^T beside it
     float p[NJ][4], ds[NJ][4];
-    rows_by_stream<D, NJ>(Kh, Kl, Qh, Ql, Vh, Vl, Oh, Ol, wq, p, ds);
+    rows_by_stream<D, NJ, kB>(Kh, Kl, Qh, Ql, Vh, Vl, Oh, Ol, wq, p, ds);
     if (q0 + SR <= Tq && kw + 16 <= Tk && (!causal || kw + 15 <= q0) &&
         (window <= 0 || kw > q0 + SR - 1 - window)) {   // nothing masked
 #pragma unroll
@@ -693,8 +797,8 @@ __global__ void __launch_bounds__(Dkdv<D>::kThreads, 1)
               make_float4(ds[j][0], ds[j][1], ds[j][2], ds[j][3]);
       }
     }
-    rows_by_dims<D, DC, NJ>(p, Oh, Ol, col0, av);    // dV += P^T dO
-    rows_by_dims<D, DC, NJ>(ds, Qh, Ql, col0, ak);   // dK += dS^T Q
+    rows_by_dims<D, DC, NJ, kB>(p, Oh, Ol, col0, av);    // dV += P^T dO
+    rows_by_dims<D, DC, NJ, kB>(ds, Qh, Ql, col0, ak);   // dK += dS^T Q
   }
   if constexpr (NG == 2) {
     __syncthreads();                     // every group's last tile is read
@@ -707,7 +811,9 @@ __global__ void __launch_bounds__(Dkdv<D>::kThreads, 1)
     add_acc<D>(groups, ak);
     add_acc<D>(groups + 64 * D, av);
   }
-  // an earlier launch's sums (unscaled) are added; scaled by the last
+  // an earlier launch's sums (unscaled) are added; scaled by the last,
+  // which stores them in TI; until then, and dV while blind rows are still
+  // to add, they wait in float32
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int key = kw + g + 8 * hr;
@@ -715,26 +821,33 @@ __global__ void __launch_bounds__(Dkdv<D>::kThreads, 1)
       const long long off =
           ((static_cast<long long>(b) * Tk + key) * Hkv + hk) * D + col0;
       if (!first) {
-        add_row<DC>(dk + off, ak, hr);
-        add_row<DC>(dv + off, av, hr);
+        add_row<DC>(dk32 + off, ak, hr);
+        add_row<DC>(dv32 + off, av, hr);
       }
-      store_row<DC>(dk + off, ak, hr, last ? scale : 1.f);
-      store_row<DC>(dv + off, av, hr, 1.f);
+      if (last)
+        store_row<DC, TI>(dk + off, ak, hr, scale);
+      else
+        store_row<DC>(dk32 + off, ak, hr, 1.f);
+      if (last && !dv_acc)
+        store_row<DC, TI>(dv + off, av, hr, 1.f);
+      else
+        store_row<DC>(dv32 + off, av, hr, 1.f);
     }
   }
 }
 
-template <int D, bool R>
+template <int D, bool R, typename TI>
 __global__ void __launch_bounds__(32 * kDqWarps, 1)
-    flash_bwd_dq(const float* __restrict__ k, const float* __restrict__ dsb,
-                 float* __restrict__ dq, int Tq, int Tk, int Hq, int Hkv,
+    flash_bwd_dq(const TI* __restrict__ k, const float* __restrict__ dsb,
+                 TI* __restrict__ dq, int Tq, int Tk, int Hq, int Hkv,
                  int causal, int window, float scale, int qbegin, int qend) {
+  constexpr bool kB = dt::kBf16<TI>;
   constexpr int SR = kDqKeys, QW = kDqWarps;
   constexpr int NK = SR / 8;             // 8-key steps a tile
   constexpr int kTile = SR * D;
   extern __shared__ __align__(16) float smem[];
-  float* raw = smem;
-  float* Kh = raw + kTile;
+  TI* raw = reinterpret_cast<TI*>(smem);
+  float* Kh = smem + kTile;
   float* Kl = Kh + kTile;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -818,43 +931,43 @@ __global__ void __launch_bounds__(32 * kDqWarps, 1)
     if (qw >= Tq || (causal && ks > qw + 15) ||
         (window > 0 && ks + SR - 1 <= qw - window))
       continue;                          // masked for all 16 rows
-    frags_by_dims<D, NK>(xh, xl, Kh, Kl, off0, off1, 0, acc);  // dQ += dS K
+    frags_by_dims<D, NK, kB>(xh, xl, Kh, Kl, off0, off1, 0, acc);  // dQ += dS K
   }
   // accumulator rows g and g + 8 are queries qw + qrow(g) and that + 4
   const int row = qw + 8 * (g >> 2) + (g & 3);
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr)
     if (row + 4 * hr < Tq)
-      store_row<D>(
+      store_row<D, TI>(
           dq + ((static_cast<long long>(b) * Tq + row + 4 * hr) * Hq + h) * D,
           acc, hr, scale);
 }
 
-template <int D>
+template <int D, typename TI>
 struct BwdAttr {};
 
-template <int D>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const float* o, const float* lse, const float* dO,
-                   float* scratch, float* dq, float* dk, float* dv, int B,
-                   int Tq, int Tk, int Hq, int Hkv, int causal, int window,
+template <int D, typename TI>
+cudaError_t launch(const TI* q, const TI* k, const TI* v, const TI* o,
+                   const float* lse, const TI* dO, float* scratch, TI* dq,
+                   TI* dk, TI* dv, float* dk32, float* dv32, int B, int Tq,
+                   int Tk, int Hq, int Hkv, int causal, int window,
                    float scale, int qbegin, int qend, int device,
                    cudaStream_t st) {
   using L = Dkdv<D>;
   // the shared-memory limits and carveout, once per device
-  cudaError_t err = rt::once_per_device<BwdAttr<D>>(device, [] {
+  cudaError_t err = rt::once_per_device<BwdAttr<D, TI>>(device, [] {
     for (auto [kernel, smem] :
          {std::pair<const void*, int>{
-              reinterpret_cast<const void*>(flash_bwd_dkdv<D, false>),
+              reinterpret_cast<const void*>(flash_bwd_dkdv<D, false, TI>),
               static_cast<int>(L::bytes)},
           std::pair<const void*, int>{
-              reinterpret_cast<const void*>(flash_bwd_dkdv<D, true>),
+              reinterpret_cast<const void*>(flash_bwd_dkdv<D, true, TI>),
               static_cast<int>(L::bytes)},
           std::pair<const void*, int>{
-              reinterpret_cast<const void*>(flash_bwd_dq<D, false>),
+              reinterpret_cast<const void*>(flash_bwd_dq<D, false, TI>),
               static_cast<int>(kDqBytes<D>)},
           std::pair<const void*, int>{
-              reinterpret_cast<const void*>(flash_bwd_dq<D, true>),
+              reinterpret_cast<const void*>(flash_bwd_dq<D, true, TI>),
               static_cast<int>(kDqBytes<D>)}}) {
       cudaError_t e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -879,27 +992,29 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   float* delta = scratch;
   float* dsb = scratch + (rows + 3) / 4 * 4;
   if (qbegin == 0) {                     // the later launches reuse it
-    flash_bwd_delta<D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(
-        o, dO, delta, rows, Tq, Hq);
+    flash_bwd_delta<D, TI>
+        <<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(
+            o, dO, delta, rows, Tq, Hq);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   const bool ranged = qbegin > 0 || qend < Tq;
-  (ranged ? flash_bwd_dkdv<D, true> : flash_bwd_dkdv<D, false>)
+  const bool blind = window > 0 && Tk - 1 + window < Tq;
+  (ranged ? flash_bwd_dkdv<D, true, TI> : flash_bwd_dkdv<D, false, TI>)
       <<<static_cast<unsigned>(kv_blocks), L::kThreads, L::bytes, st>>>(
-          q, k, v, dO, lse, delta, dk, dv, dsb, Tq, Tk, Hq, Hkv, causal,
-          window, scale, qbegin, qend);
+          q, k, v, dO, lse, delta, dk, dv, dk32, dv32, dsb, Tq, Tk, Hq, Hkv,
+          causal, window, scale, qbegin, qend, blind);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  (ranged ? flash_bwd_dq<D, true> : flash_bwd_dq<D, false>)
+  (ranged ? flash_bwd_dq<D, true, TI> : flash_bwd_dq<D, false, TI>)
       <<<static_cast<unsigned>(dq_blocks), 32 * kDqWarps, kDqBytes<D>, st>>>(
           k, dsb, dq, Tq, Tk, Hq, Hkv, causal, window, scale, qbegin,
           qend);
-  if (qend == Tq && window > 0 && Tk - 1 + window < Tq) {
+  if (qend == Tq && blind) {
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    flash_bwd_blind<D><<<static_cast<unsigned>(B * Hkv), D, 0, st>>>(
-        dO, dv, Tq, Tk, Hq, Hkv, Tk - 1 + window);
+    flash_bwd_blind<D, TI><<<static_cast<unsigned>(B * Hkv), D, 0, st>>>(
+        dO, dv32, dv, Tq, Tk, Hq, Hkv, Tk - 1 + window);
   }
   return cudaGetLastError();
 }
@@ -908,30 +1023,55 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
 }
 
+template <typename TI>
+cudaError_t dispatch(const TI* q, const TI* k, const TI* v, const TI* o,
+                     const float* lse, const TI* dO, float* scratch, TI* dq,
+                     TI* dk, TI* dv, float* dk32, float* dv32, int B, int Tq,
+                     int Tk, int Hq, int Hkv, int D, int causal, int window,
+                     float scale, int qbegin, int qend, int device,
+                     cudaStream_t st) {
+  switch (D) {
+#define RT_FLASH_BWD_D(W)                                                    \
+  case W:                                                                   \
+    return launch<W, TI>(q, k, v, o, lse, dO, scratch, dq, dk, dv, dk32,    \
+                         dv32, B, Tq, Tk, Hq, Hkv, causal, window, scale,   \
+                         qbegin, qend, device, st);
+    RT_FLASH_BWD_D(64)
+    RT_FLASH_BWD_D(96)
+    RT_FLASH_BWD_D(128)
+    RT_FLASH_BWD_D(192)
+    RT_FLASH_BWD_D(256)
+#undef RT_FLASH_BWD_D
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// q, o, do, dq (B, Tq, Hq, D); k, v, dk, dv (B, Tk, Hkv, D); lse (B, Hq,
-// Tq); all contiguous float32. One launch of each kernel over the query
-// rows [qbegin, qend) (qbegin a multiple of 128, qend one too or Tq): the
-// dK and dV of a launch after the first add to what the earlier ones wrote,
-// so the launches of one call take the ranges in order, the first at qbegin
-// 0, the last ending at Tq (kernels/flash_attention.py::bwd_plan). scratch,
-// scratch_floats long: delta (B, Hq, Tq), rounded up to a multiple of 4
-// floats, written by the qbegin-0 launch, then the range's dS blocks
-// (ds_rows of them a (b, query head), 256 floats each).
-extern "C" int rt_flash_attention_bwd(const float* q, const float* k,
-                                      const float* v, const float* o,
-                                      const float* lse, const float* dO,
-                                      float* scratch,
-                                      long long scratch_floats, float* dq,
-                                      float* dk, float* dv, int B, int Tq,
-                                      int Tk, int Hq, int Hkv, int D,
-                                      int causal, int window, float scale,
-                                      int qbegin, int qend, int device,
-                                      void* stream) {
+// q, o, do, dq (B, Tq, Hq, D); k, v, dk, dv (B, Tk, Hkv, D), contiguous,
+// float32 (bf16 0) or bfloat16 (bf16 1); lse (B, Hq, Tq) float32. One
+// launch of each kernel over the query rows [qbegin, qend) (qbegin a
+// multiple of 128, qend one too or Tq): the dK and dV of a launch after the
+// first add to what the earlier ones left, so the launches of one call take
+// the ranges in order, the first at qbegin 0, the last ending at Tq
+// (kernels/flash_attention.py::bwd_plan). scratch, scratch_floats long:
+// delta (B, Hq, Tq), rounded up to a multiple of 4 floats, written by the
+// qbegin-0 launch, then the range's dS blocks (ds_rows of them a (b, query
+// head), 256 floats each). dk32, dv32 (B, Tk, Hkv, D) float32: at bf16,
+// where the call takes more than one range or has rows that see no key
+// (dv32 then), the sums waiting between launches; ignored at float32 (dk
+// and dv hold them) and may be null where not needed.
+extern "C" int rt_flash_attention_bwd_dt(
+    const void* q, const void* k, const void* v, const void* o,
+    const float* lse, const void* dO, float* scratch,
+    long long scratch_floats, void* dq, void* dk, void* dv, float* dk32,
+    float* dv32, int B, int Tq, int Tk, int Hq, int Hkv, int D, int causal,
+    int window, float scale, int qbegin, int qend, int bf16, int device,
+    void* stream) {
   if (B < 1 || Tq < 1 || Tk < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 ||
       window < 0 || qbegin < 0 || qbegin >= qend || qend > Tq ||
-      qbegin % (16 * kDqWarps) || (qend < Tq && qend % (16 * kDqWarps)))
+      qbegin % (16 * kDqWarps) || (qend < Tq && qend % (16 * kDqWarps)) ||
+      (bf16 != 0 && bf16 != 1))
     return cudaErrorInvalidValue;
   const int nb = (Tk + 15) / 16;
   if ((static_cast<long long>(B) * Hq * Tq + 3) / 4 * 4 +
@@ -943,20 +1083,45 @@ extern "C" int rt_flash_attention_bwd(const float* q, const float* k,
       !aligned16(dO) || !aligned16(dq) || !aligned16(dk) || !aligned16(dv) ||
       !aligned16(scratch))
     return cudaErrorMisalignedAddress;
+  const bool ranged = qbegin > 0 || qend < Tq;
+  const bool blind = window > 0 && Tk - 1 + window < Tq;
+  if (bf16 && ((ranged && (dk32 == nullptr || dv32 == nullptr)) ||
+               (blind && dv32 == nullptr)))
+    return cudaErrorInvalidValue;
   cudaError_t err = rt::use_device(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-#define RT_FLASH_BWD_D(W)                                                     \
-  case W:                                                                    \
-    return launch<W>(q, k, v, o, lse, dO, scratch, dq, dk, dv, B, Tq, Tk, Hq, \
-                     Hkv, causal, window, scale, qbegin, qend, device, st);
-    RT_FLASH_BWD_D(64)
-    RT_FLASH_BWD_D(96)
-    RT_FLASH_BWD_D(128)
-    RT_FLASH_BWD_D(192)
-    RT_FLASH_BWD_D(256)
-#undef RT_FLASH_BWD_D
+  if (bf16) {
+    using dt::bf16;
+    return dispatch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                    static_cast<const bf16*>(v), static_cast<const bf16*>(o),
+                    lse, static_cast<const bf16*>(dO), scratch,
+                    static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+                    static_cast<bf16*>(dv), dk32, dv32, B, Tq, Tk, Hq, Hkv,
+                    D, causal, window, scale, qbegin, qend, device, st);
   }
-  return cudaErrorInvalidValue;
+  float* dkf = static_cast<float*>(dk);
+  float* dvf = static_cast<float*>(dv);
+  return dispatch(static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<const float*>(o),
+                  lse, static_cast<const float*>(dO), scratch,
+                  static_cast<float*>(dq), dkf, dvf, dkf, dvf, B, Tq, Tk, Hq,
+                  Hkv, D, causal, window, scale, qbegin, qend, device, st);
+}
+
+// The float32 entry: rt_flash_attention_bwd_dt at bf16 0.
+extern "C" int rt_flash_attention_bwd(const float* q, const float* k,
+                                      const float* v, const float* o,
+                                      const float* lse, const float* dO,
+                                      float* scratch,
+                                      long long scratch_floats, float* dq,
+                                      float* dk, float* dv, int B, int Tq,
+                                      int Tk, int Hq, int Hkv, int D,
+                                      int causal, int window, float scale,
+                                      int qbegin, int qend, int device,
+                                      void* stream) {
+  return rt_flash_attention_bwd_dt(q, k, v, o, lse, dO, scratch,
+                                   scratch_floats, dq, dk, dv, dk, dv, B, Tq,
+                                   Tk, Hq, Hkv, D, causal, window, scale,
+                                   qbegin, qend, 0, device, stream);
 }

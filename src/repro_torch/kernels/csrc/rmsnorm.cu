@@ -31,10 +31,19 @@
 // Widths not a multiple of 4, wider than 8,192, or misaligned pointers take
 // a scalar two-pass loop (the second pass re-reads the row from L1/L2).
 // The arithmetic is the same everywhere: r = rsqrtf(ss / d + eps), then
-// x * r * scale. Float32 only: the TPU kernel also takes bf16 (ROADMAP lists
-// it as open).
+// x * r * scale.
+//
+// dtypes, as the TPU kernel's: x and scale each float32 or bfloat16 (a
+// config's dtype and param_dtype may differ), loaded and widened to float,
+// the output in x's dtype, rounded once. Every path keeps its lane-to-
+// element map and summation order at bf16: a lane's unit is still 4
+// elements, loaded as 8 bytes (two bf16 pairs) where float32 loads 16. So
+// the bf16 output is the float32 instance's output on the widened inputs,
+// rounded once, bit for bit (chip_smoke.py checks it). A 16-byte load of 8
+// bf16 would move the same bytes in half the loads but change the order.
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
 #include "launch.cuh"
 
 #include <cstdint>
@@ -66,55 +75,63 @@ __device__ __forceinline__ float4 norm4(const float4& v, float r,
                      v.w * r * s.w);
 }
 
+using dt::as_f4;
+
 // One warp a row, blockDim.x / 32 rows a block, NV float4s a lane.
-template <int NV>
+template <int NV, typename TX, typename TS>
 __global__ void __launch_bounds__(kMaxThreads)
-    rmsnorm_warp_kernel(const float* __restrict__ x,
-                        const float* __restrict__ scale,
-                        float* __restrict__ out, long long N, int d,
+    rmsnorm_warp_kernel(const TX* __restrict__ x,
+                        const TS* __restrict__ scale,
+                        TX* __restrict__ out, long long N, int d,
                         float eps) {
+  using VX = typename dt::Vec4<TX>::type;
+  using VS = typename dt::Vec4<TS>::type;
   const int lane = threadIdx.x & 31;
   const long long row = static_cast<long long>(blockIdx.x) *
                             (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= N) return;                    // whole warp: one row each
   const int d4 = d >> 2;
-  const float4* xr = reinterpret_cast<const float4*>(x + row * d);
+  const VX* xr = reinterpret_cast<const VX*>(x + row * d);
   float4 v[NV];
   float ss = 0.f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int c = lane + 32 * i;
-    v[i] = c < d4 ? __ldcs(xr + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+    v[i] = c < d4 ? as_f4(__ldcs(xr + c)) : make_float4(0.f, 0.f, 0.f, 0.f);
     ss = sq4(v[i], ss);
   }
   ss = warp_sum(ss);
   const float r = rsqrtf(ss / static_cast<float>(d) + eps);
-  const float4* s4 = reinterpret_cast<const float4*>(scale);
-  float4* orow = reinterpret_cast<float4*>(out + row * d);
+  const VS* s4 = reinterpret_cast<const VS*>(scale);
+  VX* orow = reinterpret_cast<VX*>(out + row * d);
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int c = lane + 32 * i;
-    if (c < d4) __stcs(orow + c, norm4(v[i], r, __ldg(s4 + c)));
+    if (c < d4)
+      __stcs(orow + c, dt::from_f4<TX>(norm4(v[i], r, as_f4(__ldg(s4 + c)))));
   }
 }
 
 // A block of blockDim.x / 32 warps a row (one block a row), up to kMaxNV
 // float4s a lane.
+template <typename TX, typename TS>
 __global__ void __launch_bounds__(kMaxThreads)
-    rmsnorm_group_kernel(const float* __restrict__ x,
-                         const float* __restrict__ scale,
-                         float* __restrict__ out, int d, float eps) {
+    rmsnorm_group_kernel(const TX* __restrict__ x,
+                         const TS* __restrict__ scale,
+                         TX* __restrict__ out, int d, float eps) {
+  using VX = typename dt::Vec4<TX>::type;
+  using VS = typename dt::Vec4<TS>::type;
   __shared__ float part[kMaxThreads / 32];
   const int t = threadIdx.x, n = blockDim.x, warps = n >> 5;
   const long long row = blockIdx.x;
   const int d4 = d >> 2;
-  const float4* xr = reinterpret_cast<const float4*>(x + row * d);
+  const VX* xr = reinterpret_cast<const VX*>(x + row * d);
   float4 v[kMaxNV];
   float ss = 0.f;
 #pragma unroll
   for (int i = 0; i < kMaxNV; ++i) {
     const int c = t + n * i;
-    v[i] = c < d4 ? __ldcs(xr + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+    v[i] = c < d4 ? as_f4(__ldcs(xr + c)) : make_float4(0.f, 0.f, 0.f, 0.f);
     ss = sq4(v[i], ss);
   }
   ss = warp_sum(ss);
@@ -123,54 +140,53 @@ __global__ void __launch_bounds__(kMaxThreads)
   ss = 0.f;
   for (int w = 0; w < warps; ++w) ss += part[w];     // fixed order
   const float r = rsqrtf(ss / static_cast<float>(d) + eps);
-  const float4* s4 = reinterpret_cast<const float4*>(scale);
-  float4* orow = reinterpret_cast<float4*>(out + row * d);
+  const VS* s4 = reinterpret_cast<const VS*>(scale);
+  VX* orow = reinterpret_cast<VX*>(out + row * d);
 #pragma unroll
   for (int i = 0; i < kMaxNV; ++i) {
     const int c = t + n * i;
-    if (c < d4) __stcs(orow + c, norm4(v[i], r, __ldg(s4 + c)));
+    if (c < d4)
+      __stcs(orow + c, dt::from_f4<TX>(norm4(v[i], r, as_f4(__ldg(s4 + c)))));
   }
 }
 
+template <typename TX, typename TS>
 __global__ void __launch_bounds__(kMaxThreads)
-    rmsnorm_any_kernel(const float* __restrict__ x,
-                       const float* __restrict__ scale,
-                       float* __restrict__ out, long long N, int d,
+    rmsnorm_any_kernel(const TX* __restrict__ x,
+                       const TS* __restrict__ scale,
+                       TX* __restrict__ out, long long N, int d,
                        float eps) {
   const int lane = threadIdx.x & 31;
   const long long row =
       static_cast<long long>(blockIdx.x) * kRowsPerBlock + (threadIdx.x >> 5);
   if (row >= N) return;
-  const float* xr = x + row * d;
+  const TX* xr = x + row * d;
   float ss = 0.f;
-  for (int c = lane; c < d; c += 32) ss = fmaf(xr[c], xr[c], ss);
+  for (int c = lane; c < d; c += 32) {
+    const float v = dt::to_f(xr[c]);
+    ss = fmaf(v, v, ss);
+  }
   ss = warp_sum(ss);
   const float r = rsqrtf(ss / static_cast<float>(d) + eps);
-  float* orow = out + row * d;
-  for (int c = lane; c < d; c += 32) orow[c] = xr[c] * r * scale[c];
+  TX* orow = out + row * d;
+  for (int c = lane; c < d; c += 32)
+    orow[c] = dt::from_f<TX>(dt::to_f(xr[c]) * r * dt::to_f(scale[c]));
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
-}
-
-}  // namespace
-
-// x (N, d) and out (N, d) contiguous float32, scale (d,) float32.
-extern "C" int rt_rmsnorm(const float* x, const float* scale, float* out,
-                          long long N, int d, float eps, int device,
-                          void* stream) {
-  if (N < 1 || d < 1) return cudaErrorInvalidValue;
-  cudaError_t err = rt::use_device(device);
-  if (err != cudaSuccess) return err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = d % 4 == 0 && d <= kMaxVecWidth && aligned16(x) &&
-                   aligned16(scale) && aligned16(out);
+template <typename TX, typename TS>
+cudaError_t launch(const TX* x, const TS* scale, TX* out, long long N, int d,
+                   float eps, int device, cudaStream_t st) {
+  // a lane's unit is 4 elements: 16 bytes of float32, 8 of bf16
+  const bool vec = d % 4 == 0 && d <= kMaxVecWidth &&
+                   dt::aligned(x, 4 * sizeof(TX)) &&
+                   dt::aligned(scale, 4 * sizeof(TS)) &&
+                   dt::aligned(out, 4 * sizeof(TX));
   if (vec && d > kWarpWidth) {
     if (N > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
     const int warps = (d + kWarpWidth - 1) / kWarpWidth;
-    rmsnorm_group_kernel<<<static_cast<unsigned>(N), 32 * warps, 0, st>>>(
-        x, scale, out, d, eps);
+    rmsnorm_group_kernel<TX, TS>
+        <<<static_cast<unsigned>(N), 32 * warps, 0, st>>>(x, scale, out, d,
+                                                          eps);
     return cudaGetLastError();
   }
   if (vec) {
@@ -182,19 +198,60 @@ extern "C" int rt_rmsnorm(const float* x, const float* scale, float* out,
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
     const unsigned grid = static_cast<unsigned>(blocks);
     const int threads = static_cast<int>(32 * rows);
-    const int per_lane = (d / 4 + 31) / 32;  // float4s a lane holds
-#define RT_RMS(NV_)                                                       \
-  if (per_lane <= NV_) {                                                  \
-    rmsnorm_warp_kernel<NV_><<<grid, threads, 0, st>>>(x, scale, out, N,  \
-                                                        d, eps);          \
-    return cudaGetLastError();                                            \
+    const int per_lane = (d / 4 + 31) / 32;  // units a lane holds
+#define RT_RMS(NV_)                                                      \
+  if (per_lane <= NV_) {                                                 \
+    rmsnorm_warp_kernel<NV_, TX, TS><<<grid, threads, 0, st>>>(          \
+        x, scale, out, N, d, eps);                                       \
+    return cudaGetLastError();                                           \
   }
     RT_RMS(1) RT_RMS(2) RT_RMS(4) RT_RMS(8)
 #undef RT_RMS
   }
   const long long blocks = (N + kRowsPerBlock - 1) / kRowsPerBlock;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  rmsnorm_any_kernel<<<static_cast<unsigned>(blocks), kMaxThreads, 0, st>>>(
-      x, scale, out, N, d, eps);
+  rmsnorm_any_kernel<TX, TS>
+      <<<static_cast<unsigned>(blocks), kMaxThreads, 0, st>>>(x, scale, out,
+                                                              N, d, eps);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// x (N, d) and out (N, d) contiguous, scale (d,); dtypes: bit 0 set where
+// x and out are bfloat16 (else float32), bit 1 where scale is.
+extern "C" int rt_rmsnorm_dt(const void* x, const void* scale, void* out,
+                             long long N, int d, float eps, int dtypes,
+                             int device, void* stream) {
+  if (N < 1 || d < 1 || dtypes < 0 || dtypes > 3)
+    return cudaErrorInvalidValue;
+  cudaError_t err = rt::use_device(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using dt::bf16;
+  switch (dtypes) {
+    case 0:
+      return launch(static_cast<const float*>(x),
+                    static_cast<const float*>(scale), static_cast<float*>(out),
+                    N, d, eps, device, st);
+    case 1:
+      return launch(static_cast<const bf16*>(x),
+                    static_cast<const float*>(scale), static_cast<bf16*>(out),
+                    N, d, eps, device, st);
+    case 2:
+      return launch(static_cast<const float*>(x),
+                    static_cast<const bf16*>(scale), static_cast<float*>(out),
+                    N, d, eps, device, st);
+    default:
+      return launch(static_cast<const bf16*>(x),
+                    static_cast<const bf16*>(scale), static_cast<bf16*>(out),
+                    N, d, eps, device, st);
+  }
+}
+
+// x (N, d) and out (N, d) contiguous float32, scale (d,) float32.
+extern "C" int rt_rmsnorm(const float* x, const float* scale, float* out,
+                          long long N, int d, float eps, int device,
+                          void* stream) {
+  return rt_rmsnorm_dt(x, scale, out, N, d, eps, 0, device, stream);
 }

@@ -38,8 +38,18 @@
 // CPU's 1 / sqrt of the plain version; rsqrtf is off by up to 2 ulps, and
 // each row's error in r runs through all of its dscale terms. No atomics:
 // the result is the same bits run to run, on any card.
+//
+// dtypes, as the forward's: x and g in one type (g is the gradient of the
+// forward's output, which has x's), scale in its own, each float32 or
+// bfloat16. dx is stored in x's type and dscale in scale's, each rounded
+// once: dx from its float, dscale from the float64 sum of the partials
+// (dtype.cuh's bf16_from_double). The lane-to-element maps and summation
+// orders are the float32 instance's (a lane's unit of 4 elements is 8
+// bytes at bf16), so the bf16 results are the float32 instance's on the
+// widened inputs, rounded once.
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
 #include "launch.cuh"
 
 #include <cstdint>
@@ -83,6 +93,8 @@ __device__ __forceinline__ float4 dx4(const float4& x, const float4& g,
                      dx1(x.z, g.z, s.z, r, c), dx1(x.w, g.w, s.w, r, c));
 }
 
+using dt::as_f4;
+
 // a row's term of dscale: g * (x * r), both products rounded to float
 __device__ __forceinline__ float term(float x, float g, float r) {
   return __fmul_rn(g, __fmul_rn(x, r));
@@ -105,44 +117,47 @@ __device__ __forceinline__ void row_terms(float ss, float dot, int d,
 }
 
 // One warp a row, 8 warps a block over the block's chunk of rows.
-template <int NV>
+template <int NV, typename TX, typename TS>
 __global__ void __launch_bounds__(kThreads)
-    rmsnorm_bwd_warp_kernel(const float* __restrict__ x,
-                            const float* __restrict__ scale,
-                            const float* __restrict__ g,
-                            float* __restrict__ dx,
+    rmsnorm_bwd_warp_kernel(const TX* __restrict__ x,
+                            const TS* __restrict__ scale,
+                            const TX* __restrict__ g,
+                            TX* __restrict__ dx,
                             double* __restrict__ part, long long N, int d,
                             long long chunk, float eps) {
+  using VX = typename dt::Vec4<TX>::type;
+  using VS = typename dt::Vec4<TS>::type;
   __shared__ double tot[32 * 4 * NV];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long row0 = static_cast<long long>(blockIdx.x) * chunk;
   const long long row1 = min(N, row0 + chunk);
   const int d4 = d >> 2;
-  const float4* s4 = reinterpret_cast<const float4*>(scale);
+  const VS* s4 = reinterpret_cast<const VS*>(scale);
   float4 acc[NV];
 #pragma unroll
   for (int i = 0; i < NV; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (long long row = row0 + warp; row < row1; row += kWarps) {
-    const float4* xr = reinterpret_cast<const float4*>(x + row * d);
-    const float4* gr = reinterpret_cast<const float4*>(g + row * d);
+    const VX* xr = reinterpret_cast<const VX*>(x + row * d);
+    const VX* gr = reinterpret_cast<const VX*>(g + row * d);
     float4 xv[NV], gv[NV];
     float ss = 0.f, dot = 0.f;
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int c = lane + 32 * i;
       const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-      xv[i] = c < d4 ? __ldcs(xr + c) : z;
-      gv[i] = c < d4 ? __ldcs(gr + c) : z;
-      sums4(xv[i], gv[i], c < d4 ? __ldg(s4 + c) : z, ss, dot);
+      xv[i] = c < d4 ? as_f4(__ldcs(xr + c)) : z;
+      gv[i] = c < d4 ? as_f4(__ldcs(gr + c)) : z;
+      sums4(xv[i], gv[i], c < d4 ? as_f4(__ldg(s4 + c)) : z, ss, dot);
     }
     float r, cc;
     row_terms(warp_sum(ss), warp_sum(dot), d, eps, r, cc);
-    float4* orow = reinterpret_cast<float4*>(dx + row * d);
+    VX* orow = reinterpret_cast<VX*>(dx + row * d);
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int c = lane + 32 * i;
       if (c < d4) {
-        __stcs(orow + c, dx4(xv[i], gv[i], __ldg(s4 + c), r, cc));
+        __stcs(orow + c, dt::from_f4<TX>(dx4(xv[i], gv[i],
+                                             as_f4(__ldg(s4 + c)), r, cc)));
         acc4(acc[i], xv[i], gv[i], r);
       }
     }
@@ -172,35 +187,38 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // A block of blockDim.x / 32 warps a row, rows of the chunk in order.
+template <typename TX, typename TS>
 __global__ void __launch_bounds__(kThreads)
-    rmsnorm_bwd_group_kernel(const float* __restrict__ x,
-                             const float* __restrict__ scale,
-                             const float* __restrict__ g,
-                             float* __restrict__ dx,
+    rmsnorm_bwd_group_kernel(const TX* __restrict__ x,
+                             const TS* __restrict__ scale,
+                             const TX* __restrict__ g,
+                             TX* __restrict__ dx,
                              double* __restrict__ part, long long N, int d,
                              long long chunk, float eps) {
+  using VX = typename dt::Vec4<TX>::type;
+  using VS = typename dt::Vec4<TS>::type;
   __shared__ float red[2][2][kWarps];    // [row parity][ss, dot][warp]
   const int t = threadIdx.x, n = blockDim.x, warps = n >> 5;
   const long long row0 = static_cast<long long>(blockIdx.x) * chunk;
   const long long row1 = min(N, row0 + chunk);
   const int d4 = d >> 2;
-  const float4* s4 = reinterpret_cast<const float4*>(scale);
+  const VS* s4 = reinterpret_cast<const VS*>(scale);
   float4 acc[kMaxNV];
 #pragma unroll
   for (int i = 0; i < kMaxNV; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   int par = 0;
   for (long long row = row0; row < row1; ++row, par ^= 1) {
-    const float4* xr = reinterpret_cast<const float4*>(x + row * d);
-    const float4* gr = reinterpret_cast<const float4*>(g + row * d);
+    const VX* xr = reinterpret_cast<const VX*>(x + row * d);
+    const VX* gr = reinterpret_cast<const VX*>(g + row * d);
     float4 xv[kMaxNV], gv[kMaxNV];
     float ss = 0.f, dot = 0.f;
 #pragma unroll
     for (int i = 0; i < kMaxNV; ++i) {
       const int c = t + n * i;
       const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-      xv[i] = c < d4 ? __ldcs(xr + c) : z;
-      gv[i] = c < d4 ? __ldcs(gr + c) : z;
-      sums4(xv[i], gv[i], c < d4 ? __ldg(s4 + c) : z, ss, dot);
+      xv[i] = c < d4 ? as_f4(__ldcs(xr + c)) : z;
+      gv[i] = c < d4 ? as_f4(__ldcs(gr + c)) : z;
+      sums4(xv[i], gv[i], c < d4 ? as_f4(__ldg(s4 + c)) : z, ss, dot);
     }
     ss = warp_sum(ss);
     dot = warp_sum(dot);
@@ -216,12 +234,13 @@ __global__ void __launch_bounds__(kThreads)
     }
     float r, cc;
     row_terms(ss, dot, d, eps, r, cc);
-    float4* orow = reinterpret_cast<float4*>(dx + row * d);
+    VX* orow = reinterpret_cast<VX*>(dx + row * d);
 #pragma unroll
     for (int i = 0; i < kMaxNV; ++i) {
       const int c = t + n * i;
       if (c < d4) {
-        __stcs(orow + c, dx4(xv[i], gv[i], __ldg(s4 + c), r, cc));
+        __stcs(orow + c, dt::from_f4<TX>(dx4(xv[i], gv[i],
+                                             as_f4(__ldg(s4 + c)), r, cc)));
         acc4(acc[i], xv[i], gv[i], r);
       }
     }
@@ -240,11 +259,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // 256 threads a row, scalar: any width and alignment.
+template <typename TX, typename TS>
 __global__ void __launch_bounds__(kThreads)
-    rmsnorm_bwd_any_kernel(const float* __restrict__ x,
-                           const float* __restrict__ scale,
-                           const float* __restrict__ g,
-                           float* __restrict__ dx,
+    rmsnorm_bwd_any_kernel(const TX* __restrict__ x,
+                           const TS* __restrict__ scale,
+                           const TX* __restrict__ g,
+                           TX* __restrict__ dx,
                            double* __restrict__ part, long long N, int d,
                            long long chunk, float eps) {
   __shared__ float red[2][2][kWarps];
@@ -255,12 +275,13 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = t; c < d; c += kThreads) prow[c] = 0.0;  // this thread's
   int par = 0;
   for (long long row = row0; row < row1; ++row, par ^= 1) {
-    const float* xr = x + row * d;
-    const float* gr = g + row * d;
+    const TX* xr = x + row * d;
+    const TX* gr = g + row * d;
     float ss = 0.f, dot = 0.f;
     for (int c = t; c < d; c += kThreads) {
-      ss = fmaf(xr[c], xr[c], ss);
-      dot = fmaf(gr[c] * scale[c], xr[c], dot);
+      const float xc = dt::to_f(xr[c]);
+      ss = fmaf(xc, xc, ss);
+      dot = fmaf(dt::to_f(gr[c]) * dt::to_f(scale[c]), xc, dot);
     }
     ss = warp_sum(ss);
     dot = warp_sum(dot);
@@ -276,20 +297,22 @@ __global__ void __launch_bounds__(kThreads)
     }
     float r, cc;
     row_terms(ss, dot, d, eps, r, cc);
-    float* orow = dx + row * d;
+    TX* orow = dx + row * d;
     for (int c = t; c < d; c += kThreads) {
-      orow[c] = dx1(xr[c], gr[c], scale[c], r, cc);
-      prow[c] += term(xr[c], gr[c], r);   // float64, in global memory
+      const float xc = dt::to_f(xr[c]), gc = dt::to_f(gr[c]);
+      orow[c] = dt::from_f<TX>(dx1(xc, gc, dt::to_f(scale[c]), r, cc));
+      prow[c] += term(xc, gc, r);         // float64, in global memory
     }
   }
 }
 
 // dscale[c] = sum of part[b][c] over b, in float64 and a fixed order: 32
 // columns a block, 8 warps each summing every 8th partial, then warp
-// order; one rounding to float
+// order; one rounding to scale's type
+template <typename TS>
 __global__ void __launch_bounds__(kThreads)
     rmsnorm_bwd_reduce(const double* __restrict__ part,
-                       float* __restrict__ dscale, int nb, int d) {
+                       TS* __restrict__ dscale, int nb, int d) {
   __shared__ double red[kWarps][32];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int col = blockIdx.x * 32 + lane;
@@ -302,15 +325,79 @@ __global__ void __launch_bounds__(kThreads)
   if (w == 0 && col < d) {
     double s = 0.0;
     for (int i = 0; i < kWarps; ++i) s += red[i][lane];
-    dscale[col] = static_cast<float>(s);
+    dscale[col] = dt::from_double<TS>(s);
   }
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
+template <typename TX, typename TS>
+cudaError_t launch(const TX* x, const TS* scale, const TX* g, TX* dx,
+                   double* part, TS* dscale, long long N, int d, int nb,
+                   float eps, cudaStream_t st) {
+  const long long chunk = (N + nb - 1) / nb;
+  // a lane's unit is 4 elements: 16 bytes of float32, 8 of bf16
+  const bool vec = d % 4 == 0 && d <= kMaxVecWidth &&
+                   dt::aligned(x, 4 * sizeof(TX)) &&
+                   dt::aligned(scale, 4 * sizeof(TS)) &&
+                   dt::aligned(g, 4 * sizeof(TX)) &&
+                   dt::aligned(dx, 4 * sizeof(TX)) && dt::aligned(part, 16);
+  const unsigned grid = static_cast<unsigned>(nb);
+  if (vec && d > kWarpWidth) {
+    const int warps = (d + kWarpWidth - 1) / kWarpWidth;
+    rmsnorm_bwd_group_kernel<TX, TS><<<grid, 32 * warps, 0, st>>>(
+        x, scale, g, dx, part, N, d, chunk, eps);
+  } else if (vec) {
+    const int per_lane = (d / 4 + 31) / 32;  // units a lane holds
+    if (per_lane <= 1)
+      rmsnorm_bwd_warp_kernel<1, TX, TS><<<grid, kThreads, 0, st>>>(
+          x, scale, g, dx, part, N, d, chunk, eps);
+    else if (per_lane <= 2)
+      rmsnorm_bwd_warp_kernel<2, TX, TS><<<grid, kThreads, 0, st>>>(
+          x, scale, g, dx, part, N, d, chunk, eps);
+    else if (per_lane <= 4)
+      rmsnorm_bwd_warp_kernel<4, TX, TS><<<grid, kThreads, 0, st>>>(
+          x, scale, g, dx, part, N, d, chunk, eps);
+    else
+      rmsnorm_bwd_warp_kernel<8, TX, TS><<<grid, kThreads, 0, st>>>(
+          x, scale, g, dx, part, N, d, chunk, eps);
+  } else {
+    rmsnorm_bwd_any_kernel<TX, TS><<<grid, kThreads, 0, st>>>(
+        x, scale, g, dx, part, N, d, chunk, eps);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_bwd_reduce<TS><<<(d + 31) / 32, kThreads, 0, st>>>(part, dscale,
+                                                             nb, d);
+  return cudaGetLastError();
 }
 
 }  // namespace
+
+// x, g, dx (N, d) contiguous; scale, dscale (d,); part (nb, d) float64
+// scratch, 1 <= nb <= N. dtypes: bit 0 set where x, g and dx are bfloat16
+// (else float32), bit 1 where scale and dscale are.
+extern "C" int rt_rmsnorm_bwd_dt(const void* x, const void* scale,
+                                 const void* g, void* dx, double* part,
+                                 void* dscale, long long N, int d, int nb,
+                                 float eps, int dtypes, int device,
+                                 void* stream) {
+  if (N < 1 || d < 1 || nb < 1 || nb > N || dtypes < 0 || dtypes > 3)
+    return cudaErrorInvalidValue;
+  cudaError_t err = rt::use_device(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using dt::bf16;
+#define RT_RMS_BWD(TX, TS)                                                  \
+  return launch(static_cast<const TX*>(x), static_cast<const TS*>(scale),   \
+                static_cast<const TX*>(g), static_cast<TX*>(dx), part,      \
+                static_cast<TS*>(dscale), N, d, nb, eps, st);
+  switch (dtypes) {
+    case 0: RT_RMS_BWD(float, float)
+    case 1: RT_RMS_BWD(bf16, float)
+    case 2: RT_RMS_BWD(float, bf16)
+    default: RT_RMS_BWD(bf16, bf16)
+  }
+#undef RT_RMS_BWD
+}
 
 // x, g, dx (N, d) contiguous float32; scale, dscale (d,); part (nb, d)
 // float64 scratch, 1 <= nb <= N.
@@ -318,39 +405,6 @@ extern "C" int rt_rmsnorm_bwd(const float* x, const float* scale,
                               const float* g, float* dx, double* part,
                               float* dscale, long long N, int d, int nb,
                               float eps, int device, void* stream) {
-  if (N < 1 || d < 1 || nb < 1 || nb > N) return cudaErrorInvalidValue;
-  cudaError_t err = rt::use_device(device);
-  if (err != cudaSuccess) return err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long chunk = (N + nb - 1) / nb;
-  const bool vec = d % 4 == 0 && d <= kMaxVecWidth && aligned16(x) &&
-                   aligned16(scale) && aligned16(g) && aligned16(dx) &&
-                   aligned16(part);
-  const unsigned grid = static_cast<unsigned>(nb);
-  if (vec && d > kWarpWidth) {
-    const int warps = (d + kWarpWidth - 1) / kWarpWidth;
-    rmsnorm_bwd_group_kernel<<<grid, 32 * warps, 0, st>>>(
-        x, scale, g, dx, part, N, d, chunk, eps);
-  } else if (vec) {
-    const int per_lane = (d / 4 + 31) / 32;  // float4s a lane holds
-    if (per_lane <= 1)
-      rmsnorm_bwd_warp_kernel<1><<<grid, kThreads, 0, st>>>(
-          x, scale, g, dx, part, N, d, chunk, eps);
-    else if (per_lane <= 2)
-      rmsnorm_bwd_warp_kernel<2><<<grid, kThreads, 0, st>>>(
-          x, scale, g, dx, part, N, d, chunk, eps);
-    else if (per_lane <= 4)
-      rmsnorm_bwd_warp_kernel<4><<<grid, kThreads, 0, st>>>(
-          x, scale, g, dx, part, N, d, chunk, eps);
-    else
-      rmsnorm_bwd_warp_kernel<8><<<grid, kThreads, 0, st>>>(
-          x, scale, g, dx, part, N, d, chunk, eps);
-  } else {
-    rmsnorm_bwd_any_kernel<<<grid, kThreads, 0, st>>>(x, scale, g, dx, part,
-                                                      N, d, chunk, eps);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rmsnorm_bwd_reduce<<<(d + 31) / 32, kThreads, 0, st>>>(part, dscale, nb, d);
-  return cudaGetLastError();
+  return rt_rmsnorm_bwd_dt(x, scale, g, dx, part, dscale, N, d, nb, eps, 0,
+                           device, stream);
 }

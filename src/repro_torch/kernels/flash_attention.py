@@ -6,7 +6,8 @@ softmax over KV tiles and masked scores at ``-1e30``. GQA is taken
 natively: query head ``h`` reads KV head ``h // (Hq // Hkv)``, where the
 reference's ``ops`` repeats k and v first. The kernel is
 ``csrc/flash_attention.cu`` (its two products on TF32 tensor cores, in
-three passes that keep FP32 accuracy); its plain version is
+three passes that keep FP32 accuracy) on float32 or bfloat16 inputs, the
+output in their type and the log-sum-exp float32; its plain version is
 :func:`repro_torch.kernels.ref.flash_attention_ref`. When a graph is
 built the forward also writes each row's log-sum-exp, and the backward
 is ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd_cuda`,
@@ -19,7 +20,7 @@ import math
 import torch
 
 from . import _build
-from .pack_bits import _require_cuda
+from ._dtypes import BF16, F32, LM_DTYPES, require_lm
 
 #: head dims the forward kernel is instantiated for: 64 and 128 (the smoke
 #: configs', qwen3's and the rest), 96 and 192 (MLA's q/k widths at
@@ -38,7 +39,8 @@ def check_flash(q, k, v, window: int, *, cuda: bool = True) -> None:
     ``cuda=False`` (the op's fake rule) lets the tensors lie on any
     device."""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _require_cuda(t, name, torch.float32, cuda=cuda)
+        require_lm(t, name, dtype=None if name == "q" else q.dtype,
+                   cuda=cuda)
         if t.dim() != 4:
             raise ValueError(f"{name} must be (B, T, H, D), got "
                              f"{tuple(t.shape)}")
@@ -59,21 +61,24 @@ def check_flash(q, k, v, window: int, *, cuda: bool = True) -> None:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          return_lse: bool = False):
-    """q (B, Tq, Hq, D), k and v (B, Tk, Hkv, D), float32 and contiguous on
-    the card -> (B, Tq, Hq, D); with ``return_lse`` also the (B, Hq, Tq)
-    log-sum-exp of each row's scaled, masked scores (the output is the same
-    bits either way)."""
+    """q (B, Tq, Hq, D), k and v (B, Tk, Hkv, D), of one type (float32 or
+    bfloat16) and contiguous on the card -> (B, Tq, Hq, D) in that type;
+    with ``return_lse`` also the (B, Hq, Tq) float32 log-sum-exp of each
+    row's scaled, masked scores (the output is the same bits either
+    way)."""
     check_flash(q, k, v, window)
     B, Tq, Hq, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    lse = q.new_empty((B, Hq, Tq)) if return_lse else None
+    lse = q.new_empty((B, Hq, Tq), dtype=F32) if return_lse else None
     if B and Tq and Hq and Tk:
-        _build.check(_build.library().rt_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), B, Tq, Tk, Hq, Hkv, D,
-            int(bool(causal)), int(window), 1.0 / math.sqrt(D),
-            q.get_device(), _build.stream_of(q)), "flash_attention")
+        lib, tail = _build.library(), (q.get_device(), _build.stream_of(q))
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), B, Tq, Tk, Hq, Hkv,
+                D, int(bool(causal)), int(window), 1.0 / math.sqrt(D))
+        _build.check(lib.rt_flash_attention_dt(*args, 1, *tail)
+                     if q.dtype is BF16 else
+                     lib.rt_flash_attention(*args, *tail), "flash_attention")
     return (out, lse) if return_lse else out
 
 
@@ -140,7 +145,9 @@ def _refuse_bwd(q, k, v, o, lse, do, window, cuda):
     named = (("q", q), ("k", k), ("v", v), ("o", o), ("lse", lse),
              ("do", do))
     for name, t in named:
-        _require_cuda(t, name, torch.float32, cuda=cuda)
+        require_lm(t, name, dtype=(None if name == "q" else F32
+                                   if name == "lse" else q.dtype),
+                   cuda=cuda)
         if t.device != q.device:
             raise ValueError(f"{name} lies on {t.device}, q on {q.device}")
     if q.dim() != 4:
@@ -175,9 +182,10 @@ def check_flash_bwd(q, k, v, o, lse, do, window: int, *,
     if ok:
         B, Tq, Hq, D = q.shape
         Hkv = k.shape[2]
-        ok = (all((t.is_cuda or not cuda) and t.dtype == torch.float32
-                  and t.is_contiguous() and t.get_device() == dev
-                  for t in (q, k, v, o, lse, do))
+        ok = (all((t.is_cuda or not cuda) and t.is_contiguous()
+                  and t.get_device() == dev for t in (q, k, v, o, lse, do))
+              and q.dtype in LM_DTYPES and lse.dtype == F32
+              and k.dtype == v.dtype == o.dtype == do.dtype == q.dtype
               and o.shape == q.shape and do.shape == q.shape
               and k.shape == v.shape and k.shape[0] == B
               and k.shape[3] == D and Hkv >= 1 and Hq % Hkv == 0
@@ -192,8 +200,13 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              causal: bool = True, window: int = 0):
     """Gradients of the forward at (q, k, v): q, o and its gradient ``do``
     (B, Tq, Hq, D), k and v (B, Tk, Hkv, D), the forward's ``lse`` (B, Hq,
-    Tq), float32 and contiguous on one card -> (dq, dk, dv) in the shapes
-    of q, k and v. The mask is the forward's at any Tq and Tk (``causal``
+    Tq) float32, the rest of one type (float32 or bfloat16), contiguous on
+    one card -> (dq, dk, dv) in the shapes and type of q, k and v, each
+    accumulated in float32 and rounded once. At bfloat16 a call over more
+    than one range of query rows, or with rows that see no key, keeps the
+    sums that wait between launches in float32 buffers of k's shape
+    (``dk32``, ``dv32``), freed on return. The mask is the forward's at
+    any Tq and Tk (``causal``
     and ``window`` count positions from 0 on both sides). Each KV head's
     gradient sums its query heads' in a fixed order: the same bits run to
     run. The
@@ -213,15 +226,26 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         return dq.zero_(), dk.zero_(), dv.zero_()
     bc, bounds, floats = bwd_plan(B, Tq, Tk, Hq, bool(causal))
     scratch = lse.new_empty(floats)
-    fn, stream = _build.library().rt_flash_attention_bwd, _build.stream_of(q)
+    bf16 = q.dtype is BF16
+    blind = window > 0 and Tk - 1 + window < Tq
+    dk32 = dk.new_empty(dk.shape, dtype=F32) \
+        if bf16 and len(bounds) > 1 else None
+    dv32 = dv.new_empty(dv.shape, dtype=F32) \
+        if bf16 and (len(bounds) > 1 or blind) else None
+    # float32: the float32 entry (dk and dv hold the sums between launches)
+    lib, stream = _build.library(), _build.stream_of(q)
+    fn = lib.rt_flash_attention_bwd_dt if bf16 else lib.rt_flash_attention_bwd
+    tensors = (q, k, v, o, lse, do, dq, dk, dv) + ((dk32, dv32) if bf16
+                                                   else ())
     for b0 in range(0, B, bc):
         n = min(bc, B - b0)
-        # the slice's first bytes of each (B, ...) tensor
-        at = [t.data_ptr() + b0 * (t.numel() // B) * 4
-              for t in (q, k, v, o, lse, do, dq, dk, dv)]
+        # the slice's first bytes of each (B, ...) tensor (null: no buffer)
+        at = [t.data_ptr() + b0 * (t.numel() // B) * t.element_size()
+              if t is not None else None for t in tensors]
         for r0, r1 in bounds:
             _build.check(fn(
                 *at[:6], scratch.data_ptr(), floats, *at[6:], n, Tq, Tk, Hq,
                 Hkv, D, int(bool(causal)), int(window), 1.0 / math.sqrt(D),
-                r0, r1, dev, stream), "flash_attention_bwd")
+                r0, r1, *((1,) if bf16 else ()), dev, stream),
+                "flash_attention_bwd")
     return dq, dk, dv

@@ -54,6 +54,7 @@ from torch.utils.flop_counter import register_flop_formula
 from repro_torch.hints import is_dtensor
 
 from . import costs, ref
+from ._dtypes import LM_DTYPES
 from ._build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
 from .decode_codes import decode_codes_cuda
 from .encode_codes import encode_codes_cuda
@@ -158,7 +159,7 @@ def _fake_rmsnorm_bwd(x, scale, g, eps):
 def _fake_flash_attention(q, k, v, causal, window):
     check_flash(q, k, v, window, cuda=False)
     B, Tq, Hq, _ = q.shape
-    return torch.empty_like(q), q.new_empty((B, Hq, Tq))
+    return torch.empty_like(q), q.new_empty((B, Hq, Tq), dtype=torch.float32)
 
 
 def _fake_flash_attention_bwd(q, k, v, o, lse, dout, causal, window):
@@ -168,7 +169,8 @@ def _fake_flash_attention_bwd(q, k, v, o, lse, dout, causal, window):
 
 def _fake_selective_scan(decay, inp, c, h0):
     check_scan_kernel(decay, inp, c, h0, cuda=False)
-    return decay.new_empty(decay.shape[:3]), torch.empty_like(h0)
+    return (decay.new_empty(decay.shape[:3], dtype=torch.float32),
+            torch.empty_like(h0, dtype=torch.float32))
 
 
 def _fake_selective_scan_bwd(decay, inp, c, h0, gy, gh):
@@ -305,17 +307,26 @@ def _call(op, n_tensors, *args):
         return op(*args)
 
 
-#: each op's bytes (inputs read and outputs written once) from its
-#: arguments' shapes, for the memory term of a counted step
+def _sizes(*tensors):
+    return tuple(t.element_size() for t in tensors)
+
+
+#: each op's bytes (inputs read and outputs written once, each at its
+#: element size) from its tensor arguments, for the memory term of a
+#: counted step
 OP_BYTES = {
-    _OPS.rmsnorm.default: lambda x, *a: costs.rmsnorm_bytes(x),
-    _OPS.rmsnorm_bwd.default: lambda x, *a: costs.rmsnorm_bwd_bytes(x),
-    _OPS.flash_attention.default:
-        lambda q, k, v, *a: costs.flash_bytes(q, k, v),
-    _OPS.flash_attention_bwd.default:
-        lambda q, k, *a: costs.flash_bwd_bytes(q, k),
-    _OPS.selective_scan.default: lambda d, *a: costs.scan_bytes(d),
-    _OPS.selective_scan_bwd.default: lambda d, *a: costs.scan_bwd_bytes(d),
+    _OPS.rmsnorm.default: lambda x, s, *a: costs.rmsnorm_bytes(
+        x.shape, *_sizes(x, s)),
+    _OPS.rmsnorm_bwd.default: lambda x, s, *a: costs.rmsnorm_bwd_bytes(
+        x.shape, *_sizes(x, s)),
+    _OPS.flash_attention.default: lambda q, k, v, *a: costs.flash_bytes(
+        q.shape, k.shape, v.shape, q.element_size()),
+    _OPS.flash_attention_bwd.default: lambda q, k, *a: costs.flash_bwd_bytes(
+        q.shape, k.shape, q.element_size()),
+    _OPS.selective_scan.default: lambda d, i, c, h, *a: costs.scan_bytes(
+        d.shape, _sizes(d, i, c, h)),
+    _OPS.selective_scan_bwd.default: lambda d, i, c, h, *a:
+        costs.scan_bwd_bytes(d.shape, _sizes(d, i, c, h)),
 }
 
 
@@ -375,24 +386,27 @@ def encode_codes(z: torch.Tensor, codebooks: torch.Tensor, *, bits: int,
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
             eps: float = 1e-6) -> torch.Tensor:
     """(..., d) rows, (d,) scale -> ``x * rsqrt(mean(x^2) + eps) * scale``
-    (float32 on the card). A DTensor goes through :mod:`._mesh`: each
-    rank normalises its own rows."""
+    in x's type (float32 or bfloat16 each on the card, computed in
+    float32). A DTensor goes through :mod:`._mesh`: each rank normalises
+    its own rows."""
     if is_dtensor(x):
         from ._mesh import rmsnorm_mesh
         return rmsnorm_mesh(rmsnorm, x, scale, eps)
-    # the kernel reads whole rows: float32 views are copied to contiguous
-    # ones (other dtypes are refused on the card, not copied first)
-    if x.dtype == torch.float32 and not x.is_contiguous():
+    # the kernel reads whole rows: views of the types it takes are copied
+    # to contiguous ones (other dtypes are refused on the card, not copied
+    # first)
+    if x.dtype in LM_DTYPES and not x.is_contiguous():
         x = x.contiguous()
-    if scale.dtype == torch.float32 and not scale.is_contiguous():
+    if scale.dtype in LM_DTYPES and not scale.is_contiguous():
         scale = scale.contiguous()
     return _call(_OPS.rmsnorm.default, 2, x, scale, eps)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """(B, T, Hq, D) queries with GQA keys/values (B, T, Hkv, D) ->
-    (B, T, Hq, D). The kernel reads KV head ``h // (Hq // Hkv)`` itself,
+    """(B, T, Hq, D) queries with GQA keys/values (B, T, Hkv, D), all
+    float32 or all bfloat16 -> (B, T, Hq, D) in their type. The kernel
+    reads KV head ``h // (Hq // Hkv)`` itself,
     so nothing is repeated (the reference's ``ops`` repeats k and v). A
     DTensor goes through :mod:`._mesh`: each rank attends its own (batch,
     head) shard."""
@@ -408,8 +422,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def selective_scan(decay: torch.Tensor, inp: torch.Tensor, c: torch.Tensor,
                    h0: torch.Tensor):
     """Mamba recurrence and output: decay, inp (B, T, di, N), c (B, T, N),
-    h0 (B, di, N), float32 and contiguous -> (y (B, T, di), h_last
-    (B, di, N)), ``h_t = decay_t * h_{t-1} + inp_t``, ``y_t = <h_t, c_t>``.
+    h0 (B, di, N), each float32 or bfloat16, contiguous -> (y (B, T, di),
+    h_last (B, di, N)) in float32, ``h_t = decay_t * h_{t-1} + inp_t``,
+    ``y_t = <h_t, c_t>``.
     Anything else raises, on the card and on the CPU alike. A DTensor
     goes through :mod:`._mesh`: each rank scans its own (batch, channel)
     shard."""

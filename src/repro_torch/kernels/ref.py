@@ -3,6 +3,8 @@
 Port of ``repro.kernels.ref`` for the kernels of the port. The
 wrappers in :mod:`repro_torch.kernels.ops` run these for tensors on the
 CPU; ``chip_smoke.py`` holds each CUDA kernel against them on the card.
+The LM kernels' plain versions take float32 or bfloat16 as the kernels do:
+they compute in float32 and round each output once to its type.
 
 Words are int32 tensors carrying uint32 bit patterns. ``>>`` on int32 is
 arithmetic in PyTorch and the CPU has no uint32 shifts, so every shift
@@ -396,8 +398,9 @@ def selective_scan_bwd_ref(decay: torch.Tensor, inp: torch.Tensor,
     reverse-time recurrence: ``g_t = gy_t * c_t + decay_{t+1} * g_{t+1}``
     (g_{T-1} also takes gh), ``d_inp_t = g_t``, ``d_decay_t = g_t *
     h_{t-1}``, ``dc_t = sum_d gy_t[d] * h_t[d]``, ``dh0 = decay_0 * g_0``
-    -> (d_decay, d_inp, dc, dh0), float32. Every state of the forward is
-    kept (the kernel recomputes them from checkpoints)."""
+    -> (d_decay, d_inp, dc, dh0), computed in float32 and each rounded
+    once to its input's type. Every state of the forward is kept (the
+    kernel recomputes them from checkpoints)."""
     d, x, cf, gyf = decay.float(), inp.float(), c.float(), gy.float()
     hs = [h0.float()]
     for t in range(d.shape[1]):
@@ -409,5 +412,6 @@ def selective_scan_bwd_ref(decay: torch.Tensor, inp: torch.Tensor,
         dd.append(g * hs[t])
         dc.append(torch.einsum("bdn,bd->bn", hs[t + 1], gyf[:, t]))
         g_next = d[:, t] * g
-    return (torch.stack(dd[::-1], 1), torch.stack(dx[::-1], 1),
-            torch.stack(dc[::-1], 1), g_next)
+    return (torch.stack(dd[::-1], 1).to(decay.dtype),
+            torch.stack(dx[::-1], 1).to(inp.dtype),
+            torch.stack(dc[::-1], 1).to(c.dtype), g_next.to(h0.dtype))

@@ -1,7 +1,8 @@
 """Fused RMSNorm: the CUDA wrapper.
 
 Port of ``repro.kernels.rmsnorm``: ``x * rsqrt(mean(x^2) + eps) * scale``
-over the last axis of ``x`` (..., d), in float32. The kernel is
+over the last axis of ``x`` (..., d), in float32, on x and scale each
+float32 or bfloat16, the output in x's type (rounded once). The kernel is
 ``csrc/rmsnorm.cu``; its plain version is
 :func:`repro_torch.kernels.ref.rmsnorm_ref`. The backward is
 ``csrc/rmsnorm_bwd.cu`` (:func:`rmsnorm_bwd_cuda`, plain version
@@ -16,12 +17,12 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .pack_bits import _require_cuda
+from ._dtypes import BF16, LM_DTYPES, require_lm
 
 
 def _refuse(x: torch.Tensor, scale: torch.Tensor, cuda: bool):
-    _require_cuda(x, "x", torch.float32, cuda=cuda)
-    _require_cuda(scale, "scale", torch.float32, cuda=cuda)
+    require_lm(x, "x", cuda=cuda)
+    require_lm(scale, "scale", cuda=cuda)
     if scale.device != x.device:
         raise ValueError(f"scale lies on {scale.device}, x on {x.device}")
     raise ValueError(f"x must be (..., d) and scale (d,), got "
@@ -33,25 +34,35 @@ def check_rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     """Raise, with its message, on what the kernel does not take;
     ``cuda=False`` (the op's fake rule) lets a tensor lie on any device."""
     d = x.shape[-1] if x.dim() else 0
-    if not ((x.is_cuda or not cuda) and x.dtype == torch.float32
-            and x.is_contiguous() and scale.dtype == torch.float32
+    if not ((x.is_cuda or not cuda) and x.dtype in LM_DTYPES
+            and x.is_contiguous() and scale.dtype in LM_DTYPES
             and scale.is_contiguous()
             and scale.get_device() == x.get_device() and d >= 1
             and scale.shape == (d,)):
         _refuse(x, scale, cuda)
 
 
+def _mask(x: torch.Tensor, scale: torch.Tensor) -> int:
+    """The ``_dt`` C entries' dtype mask: 1 where x (and its kin) is
+    bfloat16, 2 where scale is; 0 (all float32) takes the float32 entry."""
+    return (x.dtype is BF16) | ((scale.dtype is BF16) << 1)
+
+
 def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *,
                  eps: float = 1e-6) -> torch.Tensor:
-    """(..., d) float32 rows + (d,) float32 scale on the card -> (..., d)."""
+    """(..., d) rows + (d,) scale on the card, each float32 or bfloat16 ->
+    (..., d) in x's type."""
     check_rmsnorm(x, scale)
     d, dev = x.shape[-1], x.get_device()
     out = torch.empty_like(x)
     n = x.numel() // d
     if n:
-        _build.check(_build.library().rt_rmsnorm(
-            x.data_ptr(), scale.data_ptr(), out.data_ptr(), n, d, eps, dev,
-            _build.stream_of(x)), "rmsnorm")
+        lib, mask = _build.library(), _mask(x, scale)
+        args = (x.data_ptr(), scale.data_ptr(), out.data_ptr(), n, d, eps)
+        _build.check(lib.rt_rmsnorm_dt(*args, mask, dev, _build.stream_of(x))
+                     if mask else
+                     lib.rt_rmsnorm(*args, dev, _build.stream_of(x)),
+                     "rmsnorm")
     return out
 
 
@@ -62,9 +73,9 @@ PARTIALS = 256
 
 
 def _refuse_bwd(x, scale, g, cuda):
-    _require_cuda(x, "x", torch.float32, cuda=cuda)
-    _require_cuda(scale, "scale", torch.float32, cuda=cuda)
-    _require_cuda(g, "g", torch.float32, cuda=cuda)
+    require_lm(x, "x", cuda=cuda)
+    require_lm(scale, "scale", cuda=cuda)
+    require_lm(g, "g", dtype=x.dtype, cuda=cuda)
     for name, t in (("scale", scale), ("g", g)):
         if t.device != x.device:
             raise ValueError(f"{name} lies on {t.device}, x on {x.device}")
@@ -74,12 +85,14 @@ def _refuse_bwd(x, scale, g, cuda):
 
 
 def check_rmsnorm_bwd(x, scale, g, *, cuda: bool = True) -> None:
-    """The backward kernel's refusals, as :func:`check_rmsnorm`'s."""
+    """The backward kernel's refusals, as :func:`check_rmsnorm`'s; g (the
+    gradient of the output) has x's type."""
     d = x.shape[-1] if x.dim() else 0
     dev = x.get_device()
-    if not (all((t.is_cuda or not cuda) and t.dtype == torch.float32
-                and t.is_contiguous() and t.get_device() == dev
-                for t in (x, scale, g))
+    if not (all((t.is_cuda or not cuda) and t.is_contiguous()
+                and t.get_device() == dev for t in (x, scale, g))
+            and x.dtype in LM_DTYPES and scale.dtype in LM_DTYPES
+            and g.dtype == x.dtype
             and d >= 1 and scale.shape == (d,) and g.shape == x.shape):
         _refuse_bwd(x, scale, g, cuda)
 
@@ -87,10 +100,11 @@ def check_rmsnorm_bwd(x, scale, g, *, cuda: bool = True) -> None:
 def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
                      *, eps: float = 1e-6):
     """Gradients of ``rmsnorm_cuda(x, scale, eps)`` for an output gradient
-    ``g``: (..., d) float32 rows x and g, (d,) scale, contiguous on one card
-    -> (dx (..., d), dscale (d,)). ``rsqrt(mean(x^2) + eps)`` is recomputed
-    from x; dscale sums per-block float64 partials in a fixed order.
-    Checked in one pass, as the forward is."""
+    ``g``: (..., d) rows x and g of one type, (d,) scale, each float32 or
+    bfloat16, contiguous on one card -> (dx (..., d) in x's type, dscale
+    (d,) in scale's). ``rsqrt(mean(x^2) + eps)`` is recomputed from x;
+    dscale sums per-block float64 partials in a fixed order and is rounded
+    once. Checked in one pass, as the forward is."""
     check_rmsnorm_bwd(x, scale, g)
     d, dev = x.shape[-1], x.get_device()
     dx = torch.empty_like(x)
@@ -100,8 +114,11 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     nb = min(n, PARTIALS)
     part = x.new_empty((nb, d), dtype=torch.float64)
     dscale = torch.empty_like(scale)
-    _build.check(_build.library().rt_rmsnorm_bwd(
-        x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        part.data_ptr(), dscale.data_ptr(), n, d, nb, eps, dev,
-        _build.stream_of(x)), "rmsnorm_bwd")
+    lib, mask = _build.library(), _mask(x, scale)
+    args = (x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            part.data_ptr(), dscale.data_ptr(), n, d, nb, eps)
+    _build.check(lib.rt_rmsnorm_bwd_dt(*args, mask, dev, _build.stream_of(x))
+                 if mask else
+                 lib.rt_rmsnorm_bwd(*args, dev, _build.stream_of(x)),
+                 "rmsnorm_bwd")
     return dx, dscale

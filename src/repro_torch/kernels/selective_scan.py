@@ -5,7 +5,8 @@ Port of ``repro.kernels.selective_scan``::
     h_t = decay_t * h_{t-1} + inp_t          (B, T, di, N)
     y_t = <h_t, C_t>_N                        -> (B, T, di)
 
-returning ``(y, h_last)``. The kernel is ``csrc/selective_scan.cu``; its
+returning ``(y, h_last)``, float32, from decay, inp, c and h0 each float32
+or bfloat16 (as the TPU kernel). The kernel is ``csrc/selective_scan.cu``; its
 plain version is :func:`repro_torch.kernels.ref.selective_scan_ref`. The
 kernel keeps each channel's state in registers, so it takes N <= 16
 (Mamba's and Jamba's ``d_state`` is 16). Its backward is
@@ -18,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ._dtypes import BF16, F32, LM_DTYPES
 
 #: the most states a channel may carry (the kernel holds them in registers)
 MAX_STATE = 16
@@ -29,15 +31,16 @@ BWD_THREADS, BWD_CHUNK = 256, 16
 def check_scan_args(decay: torch.Tensor, inp: torch.Tensor, c: torch.Tensor,
                     h0: torch.Tensor) -> None:
     """Raise unless decay and inp are (B, T, di, N), c (B, T, N) and h0
-    (B, di, N), float32, contiguous and on one device, with T >= 1.
+    (B, di, N), each float32 or bfloat16, contiguous and on one device,
+    with T >= 1.
     The common case is checked in one pass (a decode step calls this once a
     Mamba layer); the messages are built only for a refusal."""
-    s, f, dev = decay.shape, torch.float32, decay.get_device()
+    s, ok, dev = decay.shape, LM_DTYPES, decay.get_device()
     if (len(s) == 4 and s[1] >= 1 and inp.shape == s
             and c.shape == (s[0], s[1], s[3])
             and h0.shape == (s[0], s[2], s[3])
-            and decay.dtype == f and inp.dtype == f and c.dtype == f
-            and h0.dtype == f and decay.is_contiguous()
+            and decay.dtype in ok and inp.dtype in ok and c.dtype in ok
+            and h0.dtype in ok and decay.is_contiguous()
             and inp.is_contiguous() and c.is_contiguous()
             and h0.is_contiguous() and inp.get_device() == dev
             and c.get_device() == dev and h0.get_device() == dev):
@@ -53,8 +56,9 @@ def check_scan_args(decay: torch.Tensor, inp: torch.Tensor, c: torch.Tensor,
     if T < 1:
         raise ValueError("the scan needs at least one time step")
     for name, t in (("decay", decay), ("inp", inp), ("c", c), ("h0", h0)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype not in LM_DTYPES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got "
+                            f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device != decay.device:
@@ -96,19 +100,30 @@ def check_scan_bwd_kernel(decay, inp, c, h0, gy, gh, *,
                              f"{decay.device}")
 
 
+def _mask(decay, inp, c, h0) -> int:
+    """The ``_dt`` C entries' dtype mask: 1, 2, 4, 8 where decay, inp, c,
+    h0 is bfloat16; 0 (all float32) takes the float32 entry."""
+    return ((decay.dtype is BF16) | ((inp.dtype is BF16) << 1)
+            | ((c.dtype is BF16) << 2) | ((h0.dtype is BF16) << 3))
+
+
 def selective_scan_cuda(decay: torch.Tensor, inp: torch.Tensor,
                         c: torch.Tensor, h0: torch.Tensor):
-    """decay, inp (B, T, di, N), c (B, T, N), h0 (B, di, N) float32 on the
-    card -> (y (B, T, di), h_last (B, di, N))."""
+    """decay, inp (B, T, di, N), c (B, T, N), h0 (B, di, N), each float32
+    or bfloat16, on the card -> (y (B, T, di), h_last (B, di, N)),
+    float32."""
     check_scan_kernel(decay, inp, c, h0)
     B, T, di, N = decay.shape
-    y = decay.new_empty((B, T, di))
-    h_last = torch.empty_like(h0)
+    y = decay.new_empty((B, T, di), dtype=F32)
+    h_last = torch.empty_like(h0, dtype=F32)
     if di:
-        _build.check(_build.library().rt_selective_scan(
-            decay.data_ptr(), inp.data_ptr(), c.data_ptr(), h0.data_ptr(),
-            y.data_ptr(), h_last.data_ptr(), B, T, di, N,
-            decay.get_device(), _build.stream_of(decay)), "selective_scan")
+        lib, mask = _build.library(), _mask(decay, inp, c, h0)
+        args = (decay.data_ptr(), inp.data_ptr(), c.data_ptr(),
+                h0.data_ptr(), y.data_ptr(), h_last.data_ptr(), B, T, di, N)
+        tail = (decay.get_device(), _build.stream_of(decay))
+        _build.check(lib.rt_selective_scan_dt(*args, mask, *tail) if mask
+                     else lib.rt_selective_scan(*args, *tail),
+                     "selective_scan")
     return y, h_last
 
 
@@ -126,8 +141,9 @@ def selective_scan_bwd_cuda(decay: torch.Tensor, inp: torch.Tensor,
     """Gradients of :func:`selective_scan_cuda` at (decay, inp, c, h0) for
     the output gradients ``gy`` (B, T, di) of y and ``gh`` (B, di, N) of
     h_last, float32 and contiguous on the card -> (d_decay, d_inp, dc,
-    dh0) in the shapes of decay, inp, c and h0. dc sums over the channels
-    in a fixed order (no atomics): the same bits run to run. The scratch
+    dh0) in the shapes and types of decay, inp, c and h0 (each rounded
+    once from float32). dc sums over the channels in a fixed order (no
+    atomics): the same bits run to run. The scratch
     (:func:`bwd_scratch`: 67 MB of checkpoints and 67 MB of partials at
     Jamba's (2, 1,024, 8,192, 16)) is freed on return."""
     check_scan_bwd_kernel(decay, inp, c, h0, gy, gh)
@@ -136,11 +152,15 @@ def selective_scan_bwd_cuda(decay: torch.Tensor, inp: torch.Tensor,
     dc, dh0 = torch.empty_like(c), torch.empty_like(h0)
     if not di:
         return d_decay, d_inp, dc.zero_(), dh0
-    ckpt, part = (decay.new_empty(n) for n in bwd_scratch(B, T, di, N))
-    _build.check(_build.library().rt_selective_scan_bwd(
-        decay.data_ptr(), inp.data_ptr(), c.data_ptr(), h0.data_ptr(),
-        gy.data_ptr(), gh.data_ptr(), d_decay.data_ptr(), d_inp.data_ptr(),
-        dc.data_ptr(), dh0.data_ptr(), ckpt.data_ptr(), part.data_ptr(), B,
-        T, di, N, decay.get_device(), _build.stream_of(decay)),
-        "selective_scan_bwd")
+    ckpt, part = (decay.new_empty(n, dtype=F32)
+                  for n in bwd_scratch(B, T, di, N))
+    lib, mask = _build.library(), _mask(decay, inp, c, h0)
+    args = (decay.data_ptr(), inp.data_ptr(), c.data_ptr(), h0.data_ptr(),
+            gy.data_ptr(), gh.data_ptr(), d_decay.data_ptr(),
+            d_inp.data_ptr(), dc.data_ptr(), dh0.data_ptr(), ckpt.data_ptr(),
+            part.data_ptr(), B, T, di, N)
+    tail = (decay.get_device(), _build.stream_of(decay))
+    _build.check(lib.rt_selective_scan_bwd_dt(*args, mask, *tail) if mask
+                 else lib.rt_selective_scan_bwd(*args, *tail),
+                 "selective_scan_bwd")
     return d_decay, d_inp, dc, dh0

@@ -30,9 +30,10 @@ reference's ``benchmarks/roofline_table.py``) and its op counts,
 ``<arch>__<shape>__<mesh>.ops.json``, which ``--reanalyze`` turns into
 reports again with no run. ``--device`` is ``cuda`` unless ``cpu`` is
 given: the fake tensors then report the card as their device, and a
-process with no GPU refuses it. The dtype defaults to float32, the only
-type the port's kernels take (the reference's default is bfloat16):
-``--dtype bfloat16`` fails with the kernels' own refusal. Importing this
+process with no GPU refuses it. The dtype defaults to bfloat16, as the
+reference's: the config's ``dtype`` and ``param_dtype`` both (the AdamW
+moments stay float32), and the report's compute term on the bf16 tensor
+cores' peak; ``--dtype float32`` counts the float32 step. Importing this
 module starts nothing; the group lives for one run and is destroyed when
 it ends.
 """
@@ -113,9 +114,12 @@ class _Args:
                             dtype=dtype, device=self.device)
         return shd.from_shard(local, tuple(shape), spec, self.mesh)
 
-    def make_tree(self, tree, specs):
+    def make_tree(self, tree, specs, dtype=None):
+        """Fake DTensors of ``tree``'s shapes: floating leaves in ``dtype``
+        (default the run's)."""
+        dtype = dtype or self.dtype
         return _tree_map(lambda t, s: self.make(
-            t.shape, s, self.dtype if t.dtype.is_floating_point
+            t.shape, s, dtype if t.dtype.is_floating_point
             else t.dtype), tree, specs)
 
 
@@ -146,7 +150,9 @@ def _step_and_args(cfg, shape, mesh, window, args: _Args, mode):
             params = args.make_tree(st_shape.params, sspec.params)
             for p in leaves(params):
                 p.requires_grad_(True)
-            mu, nu = (args.make_tree(list(m), list(sspec.opt.mu))
+            # the moments are float32 whatever the parameters' type
+            mu, nu = (args.make_tree(list(m), list(sspec.opt.mu),
+                                     torch.float32)
                       for m in (st_shape.opt.mu, st_shape.opt.nu))
             batch = {k: args.make(v, bspec[k], args.dtype if k == "frames"
                                   else torch.int64)
@@ -185,15 +191,15 @@ def _step_and_args(cfg, shape, mesh, window, args: _Args, mode):
 
 
 def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
-               dtype: str = "float32", device=None, verbose: bool = True):
+               dtype: str = "bfloat16", device=None, verbose: bool = True):
     """Count one combo on a fake group of 256 (512 with ``multi_pod``)
-    ranks -> (report dict, :class:`OpTotals`)."""
+    ranks, the config at ``dtype`` (its ``dtype`` and ``param_dtype``, as
+    the reference's dry run sets them) -> (report dict,
+    :class:`OpTotals`)."""
     from repro_torch.distributed import steps as S
     from repro_torch.launch.mesh import make_production_mesh
     device = resolve_device(device)
-    cfg = get_config(arch)
-    if dtype != "float32":
-        cfg = cfg.replace(dtype=dtype, param_dtype=dtype)
+    cfg = get_config(arch).replace(dtype=dtype, param_dtype=dtype)
     shape = INPUT_SHAPES[shape_name]
     mesh_name, chips = MESHES[multi_pod]
     window = S.decode_window(cfg, shape)
@@ -294,10 +300,10 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true",
                     help="all 40 combos on the chosen mesh")
     ap.add_argument("--out", default="experiments/dryrun")
-    ap.add_argument("--dtype", default="float32",
-                    help="float32 (default): the port's kernels take "
-                         "float32 only, so bfloat16 (the reference's "
-                         "default) fails with the kernels' refusal")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"),
+                    help="the config's dtype and param_dtype: bfloat16 "
+                         "(the default, as the reference's) or float32")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu: the fake tensors' device")
     ap.add_argument("--reanalyze", action="store_true",

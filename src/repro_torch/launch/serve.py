@@ -70,10 +70,12 @@ from repro_torch.models import transformer as T
 
 def audio_frames(cfg, batch: int, seed: int, device) -> torch.Tensor:
     """The reference launcher's stub frames, ``jax.random.normal(PRNGKey(
-    seed), (batch, n_audio_frames, d_model))``, on ``device``."""
+    seed), (batch, n_audio_frames, d_model))``, on ``device`` in
+    ``cfg.dtype`` (the reference's float32 frames meet bfloat16 weights by
+    promotion; PyTorch's products take one type)."""
     shape = (batch, cfg.n_audio_frames, cfg.d_model)
     return torch.from_numpy(prng.normal(prng.prng_key(seed), shape)) \
-        .to(device)
+        .to(device=device, dtype=getattr(torch, cfg.dtype))
 
 
 def generate(params, cfg, prompts: torch.Tensor, gen: int, *,
@@ -120,11 +122,16 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--dtype", default=None, choices=("float32", "bfloat16"),
+                    help="the config's dtype and param_dtype (default the "
+                         "config's own)")
     args = ap.parse_args(argv)
 
     dev = init_world(args.device)
     mesh = make_host_mesh(device=dev.type)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.dtype:
+        cfg = cfg.replace(dtype=args.dtype, param_dtype=args.dtype)
     max_len = args.prompt_len + args.gen
     in_specs = S.build_serve_step(
         cfg, mesh, ShapeConfig("serve", max_len, args.batch, "decode"))[1]
@@ -145,7 +152,8 @@ def main(argv=None):
         torch.cuda.synchronize(dev)
     dt = time.time() - t0
     print(f"arch={cfg.name} generated {args.batch}x{args.gen} tokens "
-          f"in {dt:.2f}s ({args.batch * max_len / dt:.1f} tok/s)")
+          f"in {dt:.2f}s ({args.batch * max_len / dt:.1f} tok/s), "
+          f"dtype={cfg.dtype}")
     print("first sequence:", seqs[0, :48].tolist())
     return seqs
 

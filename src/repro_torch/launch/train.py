@@ -62,12 +62,13 @@ def batch_at(seed: int, step: int, batch: int, seq: int, vocab: int,
 
 def frames_at(seed: int, step: int, batch: int, cfg, device
               ) -> torch.Tensor:
-    """Step ``step``'s (batch, n_audio_frames, d_model) float32 frames of
-    an encoder-decoder, N(0, 1) drawn on the CPU from a generator seeded by
-    ``(seed, step)`` and moved to ``device``."""
+    """Step ``step``'s (batch, n_audio_frames, d_model) frames of an
+    encoder-decoder in ``cfg.dtype`` (as the reference's launcher draws
+    them), N(0, 1) drawn in float32 on the CPU from a generator seeded by
+    ``(seed, step)``, cast and moved to ``device``."""
     g = torch.Generator().manual_seed((seed << 32) + step)
     return torch.randn((batch, cfg.n_audio_frames, cfg.d_model),
-                       generator=g).to(device)
+                       generator=g).to(getattr(torch, cfg.dtype)).to(device)
 
 
 def init_state(cfg, seed: int, device) -> S.TrainState:
@@ -132,15 +133,21 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--dtype", default=None, choices=("float32", "bfloat16"),
+                    help="the config's dtype and param_dtype (default the "
+                         "config's own; the moments stay float32)")
     args = ap.parse_args(argv)
 
     dev = init_world(args.device)
     mesh = make_host_mesh(device=dev.type)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.dtype:
+        cfg = cfg.replace(dtype=args.dtype, param_dtype=args.dtype)
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                        warmup_steps=max(1, args.steps // 10))
     print(f"arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
-          f"device={dev} mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+          f"device={dev} mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+          f"dtype={cfg.dtype}")
     state = init_state(cfg, args.seed, dev)
     if args.ckpt_dir:
         restored, at = restore(args.ckpt_dir, state)

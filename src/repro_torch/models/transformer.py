@@ -125,19 +125,23 @@ def _init_encoder_block(cfg, generator) -> dict:
             "ffn": init_mlp(cfg.d_model, cfg.d_ff, generator=generator)}
 
 
-def _to(tree, device):
+def _to(tree, device, dtype=None):
     if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
+        return {k: _to(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to(v, device) for v in tree]
-    return tree.to(device)
+        return [_to(v, device, dtype) for v in tree]
+    return tree.to(device=device, dtype=dtype)
 
 
 def init_lm(generator: Optional[torch.Generator], cfg: ModelConfig, *,
-            device=None) -> dict:
+            device=None, dtype=None) -> dict:
     """Parameters in the reference's shapes and init scales, drawn from
     ``generator`` on its own device and moved to ``device`` (cuda unless
-    ``device="cpu"``): ``embed``, ``final_norm``, ``head`` (untied only)
+    ``device="cpu"``), in ``dtype`` (default ``cfg.param_dtype``, as the
+    reference's ``init_lm``): every leaf is drawn in float32 and cast once,
+    rounding to nearest even (the draws differ from ``jax.random``'s
+    anyway, so drawing in the target type would buy nothing). The tree:
+    ``embed``, ``final_norm``, ``head`` (untied only)
     and ``segments``, a list (one per segment) of per-layer dicts; an
     encoder-decoder also has ``encoder``, a list of ``n_encoder_layers``
     per-layer dicts, and ``enc_final_norm``; a config with ``use_mtp``
@@ -148,6 +152,7 @@ def init_lm(generator: Optional[torch.Generator], cfg: ModelConfig, *,
     with the reference come through :mod:`repro_torch.convert`."""
     check_supported(cfg)
     device = resolve_device(device)
+    dtype = dtype or getattr(torch, cfg.param_dtype)
     params: dict = {
         "embed": embed_init(cfg.vocab_size, cfg.d_model, generator=generator),
         "final_norm": init_norm(cfg.norm, cfg.d_model),
@@ -157,22 +162,23 @@ def init_lm(generator: Optional[torch.Generator], cfg: ModelConfig, *,
                                     generator=generator).T.contiguous()
     params["segments"] = []
     for mixer, ffn, n in segment_plan(cfg):
-        # moved as drawn: a CPU generator holds one segment on the host
+        # moved (and cast) as drawn: a CPU generator holds one segment on
+        # the host
         params["segments"].append(_to(
             [_init_block(cfg, mixer, ffn, generator) for _ in range(n)],
-            device))
+            device, dtype))
     if cfg.is_encoder_decoder:
         params["encoder"] = _to([_init_encoder_block(cfg, generator)
                                  for _ in range(cfg.n_encoder_layers)],
-                                device)
+                                device, dtype)
         params["enc_final_norm"] = init_norm(cfg.norm, cfg.d_model)
     if cfg.use_mtp:
         params["mtp"] = _to({
             "proj": embed_init(2 * cfg.d_model, cfg.d_model,
                                generator=generator),
             "block": _init_block(cfg, "attn", "dense", generator),
-            "norm": init_norm(cfg.norm, cfg.d_model)}, device)
-    return _to(params, device)
+            "norm": init_norm(cfg.norm, cfg.d_model)}, device, dtype)
+    return _to(params, device, dtype)
 
 
 # ----------------------------------------------------------------- blocks

@@ -82,7 +82,10 @@ def adamw_update(params, grads, state: AdamWState, *, lr: float,
                  weight_decay: float = 0.0, grad_clip: float = 0.0):
     """One AdamW step -> (params, state); ``params`` and the moments are
     updated in place. The bias corrections are float32, as the
-    reference's ``1 - b ** count`` of a float32 count is."""
+    reference's ``1 - b ** count`` of a float32 count is; the moments are
+    float32 whatever the parameters' type, and a bfloat16 parameter's step
+    is rounded to bfloat16 before ``p - lr * step`` is formed in float32 and
+    rounded once, as the reference casts it."""
     flat_p = leaves(params)
     flat_g = [g.redistribute(p.device_mesh, p.placements)
               if is_dtensor(g) and g.placements != p.placements else g
@@ -117,6 +120,9 @@ def adamw_update(params, grads, state: AdamWState, *, lr: float,
         if weight_decay:
             torch._foreach_add_(step, [x.float() for x in p],
                                 alpha=weight_decay)
+        # the reference's p - lr * step.astype(p.dtype) in float32, rounded
+        # once to p's type (a float32 step is kept as it is)
+        step = [t.to(x.dtype).float() for t, x in zip(step, p)]
         torch._foreach_mul_(step, lr)
         torch._foreach_sub_(p, step)
     return params, AdamWState(mu=mu, nu=nu, count=count)

@@ -20,8 +20,11 @@ reports the cards the port has run on):
   step's matrix products run here;
 * TF32 tensor cores: 495 TFLOP/s (494.7); the flash kernels take three
   TF32 passes a product (``csrc/tf32x3.cuh``), so their work bounds at a
-  third of it (:func:`flash_bound_ms`);
-* bfloat16 tensor cores: 989 TFLOP/s (989.4);
+  third of it (:func:`flash_bound_ms`); at bfloat16 inputs fewer (a
+  bf16 operand's low part is 0: :func:`flash_passes`);
+* bfloat16 tensor cores: 989 TFLOP/s (989.4): a bfloat16 step's
+  ``compute`` term (``dtype="bfloat16"``), its matrix products running
+  there;
 * HBM3: 3.35 TB/s;
 * NVLink: 450 GB/s each way a GPU inside an 8-GPU HGX node;
 * between nodes: 50 GB/s a GPU (one 400 Gb/s NDR link).
@@ -137,6 +140,17 @@ def bound_ms(nbytes: float, flops: float, rate: float) -> float:
     """The least time of a call: the larger of its bytes over HBM and its
     operations over ``rate``, in ms."""
     return 1e3 * max(nbytes / HBM_BW, flops / rate)
+
+
+def flash_passes(size: int = 4, backward: bool = False) -> float:
+    """TF32 passes a product of the flash kernels, on the average over
+    their products, at inputs of ``size`` bytes: three at float32; at
+    bfloat16 the passes with a bf16-origin low part go (two in the
+    forward's products; in the backward's five, one for S and dP, whose
+    operands are all bf16, two for dV, dK and dQ: 8 / 5)."""
+    if size == 4:
+        return 3.0
+    return 8 / 5 if backward else 2.0
 
 
 def flash_bound_ms(B, Tq, Tk, Hq, Hkv, D, causal, window=0, *, Dv=None,

@@ -154,9 +154,7 @@ class _Counter:
             t.collective_groups[group] = \
                 t.collective_groups.get(group, 0.0) + nbytes
         if func in self.op_bytes:
-            shapes = [a.shape if isinstance(a, torch.Tensor) else a
-                      for a in args]
-            t.hbm_bytes += float(self.op_bytes[func](*shapes))
+            t.hbm_bytes += float(self.op_bytes[func](*args))
         elif name not in _ALLOCATIONS:
             for ret, o in zip(func._schema.returns, outs):
                 alias = ret.alias_info

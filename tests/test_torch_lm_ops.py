@@ -7,8 +7,8 @@ their registration, fake rules, FLOP formulas and gradients, on the CPU.
 * the fake rules' shapes equal the CPU implementation's;
 * the fake rules refuse what the CUDA wrappers refuse, with the same
   messages (the wrappers reached without a card through a CPU tensor that
-  reports ``cuda:0``): a bfloat16 input, head dim 48, 32 states, Hq not a
-  multiple of Hkv;
+  reports ``cuda:0``): a float16 input, head dim 48 (at float32 and at
+  bfloat16), 32 states, Hq not a multiple of Hkv;
 * the FLOP formulas under ``torch.utils.flop_counter`` count the visible
   (query, key) pairs of the mask, against a brute-force count, and
   ``PERF.md`` section 6's pair counts;
@@ -105,9 +105,14 @@ def _on_card(args):
 
 
 REFUSALS = {
-    "bf16": ("rmsnorm", lambda: (torch.zeros(3, 64, dtype=torch.bfloat16),
+    "fp16": ("rmsnorm", lambda: (torch.zeros(3, 64, dtype=torch.float16),
                                  torch.zeros(64)),
              lambda x, s: rmsnorm_cuda(x, s)),
+    "bf16": ("flash_attention", lambda: (
+        torch.zeros(1, 4, 2, 48, dtype=torch.bfloat16),
+        torch.zeros(1, 4, 1, 48, dtype=torch.bfloat16),
+        torch.zeros(1, 4, 1, 48, dtype=torch.bfloat16)),
+        lambda q, k, v: flash_attention_cuda(q, k, v)),
     "D48": ("flash_attention", lambda: (torch.zeros(1, 4, 2, 48),
                                        torch.zeros(1, 4, 1, 48),
                                        torch.zeros(1, 4, 1, 48)),

@@ -6,8 +6,10 @@ profile and flash row) or one of its training phases, ``lm_whisper_train``
 (with the flash backward's rows at whisper-base's three shapes) and
 ``lm_hybrid_train`` (with selective_scan_bwd's row), ``lm_wide_train``
 (with the flash backward's rows at D 96, 192 and 256), ``lm_mesh`` (the
-mesh path, after the ``lm_serve`` phase whose weights it takes) or
-``lm_dryrun`` (the dry run in a subprocess). Every
+mesh path, after the ``lm_serve`` phase whose weights it takes),
+``lm_bf16`` (qwen3-0.6b serving and training at bfloat16, then each LM
+kernel's bf16 row) or ``lm_dryrun`` (the dry run in a subprocess, at
+bfloat16). Every
 line is the one
 ``chip_smoke.py`` prints, from the same functions and under the same
 checks.
@@ -46,6 +48,11 @@ def wide_train(dev):
             **C.wide_bwd_rows(dev, out["bwd_by_width"])})
 
 
+def bf16(dev):
+    launches = C.phase_lm_bf16(dev)
+    C.emit({"phase": "lm_bf16_rows", **C.bf16_rows(dev, launches)})
+
+
 def mesh(dev):
     lm = C.phase_lm_serve(dev)
     C.phase_lm_mesh(dev, lm)
@@ -54,6 +61,7 @@ def mesh(dev):
 TRAIN_PHASES = {"lm_whisper_train": whisper_train,
                 "lm_hybrid_train": hybrid_train,
                 "lm_wide_train": wide_train, "lm_mesh": mesh,
+                "lm_bf16": bf16,
                 "lm_dryrun": C.phase_lm_dryrun}
 
 
